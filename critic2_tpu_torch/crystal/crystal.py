@@ -1,0 +1,167 @@
+"""The Crystal class: host-side structure, frames and periodic images.
+
+Role of the reference's crystalmod (src/crystalmod.f90): cell metrics and
+coordinate frames (input-crystallographic / Delaunay-reduced / Cartesian),
+atom lists, Wigner-Seitz cell, shortest-vector searches and the
+periodic-image environment that feeds promolecular evaluation.
+
+Host code (NumPy), a copy of what the slice needs from the JAX package's
+crystal module. Symmetry, space-group naming and Wyckoff letters are not
+ported yet and raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field as dfield
+
+import numpy as np
+
+from . import cell as cellmod
+from .wscell import WignerSeitz, reduced_basis, wigner_seitz
+
+
+@dataclass
+class Species:
+    name: str
+    z: int
+
+
+@dataclass
+class Crystal:
+    """An immutable crystal or molecular structure; atoms are the full
+    cell list in fractional coordinates (the reference's `atcel`)."""
+
+    m_x2c: np.ndarray                 # (3,3) columns = lattice vectors (bohr)
+    x_frac: np.ndarray                # (ncel, 3) fractional coords
+    species_of: np.ndarray            # (ncel,) index into species
+    species: list                     # list[Species]
+    ismolecule: bool = False
+    molx0: np.ndarray | None = None   # molecule origin shift (Cartesian)
+    molborder: np.ndarray = dfield(default_factory=lambda: np.zeros(3))
+
+    m_c2x: np.ndarray = dfield(init=False)
+    volume: float = dfield(init=False)
+    aa: np.ndarray = dfield(init=False)
+    bb: np.ndarray = dfield(init=False)
+
+    def __post_init__(self):
+        self.m_x2c = np.asarray(self.m_x2c, dtype=float)
+        self.x_frac = np.atleast_2d(np.asarray(self.x_frac, dtype=float))
+        self.species_of = np.asarray(self.species_of, dtype=int)
+        self.m_c2x = np.linalg.inv(self.m_x2c)
+        self.volume = cellmod.cell_volume(self.m_x2c)
+        self.aa, self.bb = cellmod.cellpar_from_m_x2c(self.m_x2c)
+        self._ws = None
+        self._mxr = None
+
+    @property
+    def ncel(self) -> int:
+        return len(self.x_frac)
+
+    @property
+    def zatoms(self) -> np.ndarray:
+        """Atomic number per atom in the cell."""
+        zs = np.array([s.z for s in self.species], dtype=int)
+        return zs[self.species_of]
+
+    @property
+    def x_cart(self) -> np.ndarray:
+        return self.x_frac @ self.m_x2c.T
+
+    def x2c(self, x):
+        return np.asarray(x, dtype=float) @ self.m_x2c.T
+
+    def c2x(self, c):
+        return np.asarray(c, dtype=float) @ self.m_c2x.T
+
+    # ------------------------------------------------------------------
+    # Delaunay-reduced frame (shortest-vector searches)
+    # ------------------------------------------------------------------
+    @property
+    def m_xr2x(self) -> np.ndarray:
+        """Reduced-crystallographic to input-crystallographic matrix."""
+        if self._mxr is None:
+            self._mxr = (np.eye(3) if self.ismolecule
+                         else reduced_basis(self.m_x2c))
+        return self._mxr
+
+    @property
+    def m_x2xr(self) -> np.ndarray:
+        return np.linalg.inv(self.m_xr2x)
+
+    @property
+    def m_xr2c(self) -> np.ndarray:
+        return self.m_x2c @ self.m_xr2x
+
+    def shortest_vector(self, dx_frac):
+        """Shortest lattice-translated Cartesian vector(s) for fractional
+        difference(s) dx (N,3) or (3,): wrap in the Delaunay-reduced frame,
+        then check the 27 surrounding reduced-lattice translations."""
+        dx = np.atleast_2d(np.asarray(dx_frac, dtype=float))
+        if self.ismolecule:
+            out = dx @ self.m_x2c.T
+            return out if np.asarray(dx_frac).ndim == 2 else out[0]
+        xr = dx @ self.m_x2xr.T
+        xr -= np.round(xr)
+        cand = np.array(
+            [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1)
+             for k in (-1, 0, 1)], dtype=float)
+        cart = (xr[:, None, :] + cand[None, :, :]) @ self.m_xr2c.T
+        d2 = np.einsum("nmk,nmk->nm", cart, cart)
+        out = cart[np.arange(len(cart)), np.argmin(d2, axis=1)]
+        return out if np.asarray(dx_frac).ndim == 2 else out[0]
+
+    def distance(self, x1_frac, x2_frac):
+        """Minimum-image distance(s) between fractional coordinates."""
+        d = self.shortest_vector(np.asarray(x1_frac) - np.asarray(x2_frac))
+        return np.linalg.norm(d, axis=-1)
+
+    # ------------------------------------------------------------------
+    # symmetry: not ported yet
+    # ------------------------------------------------------------------
+    @property
+    def spacegroup(self):
+        raise NotImplementedError("symmetry is not ported to the torch "
+                                  "package yet")
+
+    def spg_name(self):
+        raise NotImplementedError("space-group naming is not ported to the "
+                                  "torch package yet")
+
+    def wyckoffs(self, symprec: float = 1e-4):
+        raise NotImplementedError("Wyckoff letters are not ported to the "
+                                  "torch package yet")
+
+    @property
+    def ws(self) -> WignerSeitz:
+        if self._ws is None:
+            self._ws = wigner_seitz(self.m_x2c)
+        return self._ws
+
+    # ------------------------------------------------------------------
+    # periodic-image environment (device-feeding arrays)
+    # ------------------------------------------------------------------
+    def atomic_environment(self, rmax: float):
+        """All atom images within rmax of any point of the unit cell.
+
+        Returns (pos_cart (M,3), spc (M,), cellidx (M,)): a static
+        candidate list that the promolecular sum contracts densely."""
+        if self.ismolecule:
+            return self.x_cart, self.species_of.copy(), np.arange(self.ncel)
+        widths = 1.0 / np.linalg.norm(self.m_c2x, axis=1)
+        nimg = np.ceil(rmax / widths).astype(int) + 1
+        rng = [np.arange(-n, n + 1) for n in nimg]
+        shifts = np.stack(np.meshgrid(*rng, indexing="ij"),
+                          axis=-1).reshape(-1, 3)
+        pos = (self.x_frac[None, :, :] + shifts[:, None, :]).reshape(-1, 3)
+        spc = np.tile(self.species_of, len(shifts))
+        cidx = np.tile(np.arange(self.ncel), len(shifts))
+        cart = pos @ self.m_x2c.T
+        # conservative prune: fractional bounding box of the cell + rmax
+        fbuf = rmax / widths
+        ok = np.all((pos > -fbuf - 1e-9) & (pos < 1.0 + fbuf + 1e-9), axis=1)
+        return cart[ok], spc[ok], cidx[ok]
+
+    def __repr__(self):
+        kind = "molecule" if self.ismolecule else "crystal"
+        return (f"Crystal({kind}, {self.ncel} atoms, "
+                f"a={self.aa.round(4)}, angles={self.bb.round(2)})")

@@ -1,0 +1,89 @@
+"""3D periodic grid fields: the device tensor and the cube reader.
+
+Role of the reference grid3mod (src/grid3mod.f90): hold the (n1, n2, n3)
+scalar data over fractional coordinates. The port carries the Gaussian
+cube reader; the other file formats raise NotImplementedError, and
+interpolation and the FFT-derived grids are not ported yet.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..config import FDTYPE, resolve_device
+
+
+def parse_cube_header(path: str):
+    """Returns (x0, voxel_vectors (3,3 columns), n (3,), atoms zs, atom
+    cartesians, is-MO flag, byte offset of the data) - all in bohr."""
+    with open(path) as f:
+        f.readline()
+        f.readline()
+        toks = f.readline().split()
+        nat = int(toks[0])
+        x0 = np.array([float(t) for t in toks[1:4]])
+        n = np.zeros(3, dtype=int)
+        vox = np.zeros((3, 3))
+        for i in range(3):
+            toks = f.readline().split()
+            n[i] = int(toks[0])
+            vox[:, i] = [float(t) for t in toks[1:4]]
+        ismo = nat < 0
+        nat = abs(nat)
+        zs = np.zeros(nat, dtype=int)
+        pos = np.zeros((nat, 3))
+        for i in range(nat):
+            toks = f.readline().split()
+            zs[i] = int(toks[0])
+            pos[i] = [float(t) for t in toks[2:5]]
+        offset = f.tell()
+    return x0, vox, n, zs, pos, ismo, offset
+
+
+@dataclass
+class Grid3:
+    f: torch.Tensor                     # (n1,n2,n3) device tensor
+
+    @property
+    def n(self):
+        return tuple(self.f.shape)
+
+    @property
+    def ntot(self):
+        return int(np.prod(self.f.shape))
+
+    @classmethod
+    def from_file(cls, path: str, fmt: str | None = None,
+                  device=None) -> "Grid3":
+        if fmt is None:
+            fmt = detect_grid_format(path)
+        if fmt == "cube":
+            return cls.read_cube(path, device=device)
+        raise NotImplementedError(f"grid format {fmt} is not ported to the "
+                                  "torch package yet")
+
+    @classmethod
+    def read_cube(cls, path: str, device=None) -> "Grid3":
+        """Gaussian cube (reference read_cube, src/grid3mod@proc.f90:396):
+        values with the third index fastest -> C-order reshape."""
+        _, _, n, _, _, ismo, offset = parse_cube_header(path)
+        with open(path) as fh:
+            fh.seek(offset)
+            if ismo:
+                fh.readline()  # MO index line
+            data = np.array(fh.read().split(), dtype=np.float64)
+        vals = data[: int(np.prod(n))].reshape(tuple(n))
+        return cls(torch.as_tensor(vals, dtype=FDTYPE,
+                                   device=resolve_device(device)))
+
+
+def detect_grid_format(path: str) -> str:
+    """File format from the name; only the cube formats are told apart
+    here, since no other reader is ported yet."""
+    ext = os.path.splitext(os.path.basename(path).lower())[1].lstrip(".")
+    if ext in ("cube", "bincube"):
+        return ext
+    raise ValueError(f"cannot detect grid format of {path}")

@@ -1,0 +1,117 @@
+"""Package rules of the torch port: no JAX, no import of the JAX package,
+CUDA by default with no silent CPU fallback, kernels built from source."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import critic2_tpu_torch
+from critic2_tpu_torch import System, config
+from critic2_tpu_torch.analysis.yt import yt_integrate
+from critic2_tpu_torch.convert import crystal_from_arrays
+from critic2_tpu_torch.ops import _ext
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(critic2_tpu_torch.__file__)
+FORBIDDEN = {"jax", "jaxlib", "critic2_tpu"}
+
+
+def _modules():
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                yield os.path.join(dirpath, fn)
+
+
+def _imported_roots(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_jax_or_jax_package_import_anywhere():
+    mods = list(_modules())
+    assert len(mods) >= 15
+    bad = [(os.path.relpath(p, ROOT), r) for p in mods
+           for r in _imported_roots(p) if r in FORBIDDEN]
+    assert not bad, bad
+    # the scan sees real imports
+    assert "torch" in set(_imported_roots(os.path.join(PKG, "config.py")))
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = ("import sys\n"
+            "import critic2_tpu_torch\n"
+            "import critic2_tpu_torch.analysis.integration\n"
+            "import critic2_tpu_torch.analysis.yt\n"
+            "import critic2_tpu_torch.convert\n"
+            "import critic2_tpu_torch.fields.field\n"
+            "import critic2_tpu_torch.ops.yt_pass\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib',"
+            " 'critic2_tpu'))\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def _crystal():
+    return crystal_from_arrays(np.diag([6.0, 6.0, 6.0]), [[0, 0, 0]], [0],
+                               [("Na", 11)])
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        config.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        config.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        System.from_structure(_crystal())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        yt_integrate(_crystal(), np.ones((4, 4, 4)))
+    assert config.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_explicit_cpu_device_and_dtypes():
+    s = System.from_structure(_crystal(), device="cpu")
+    assert s.device == torch.device("cpu")
+    assert s.fields[0].promol.atpos.dtype == config.FDTYPE == torch.float64
+    assert config.EDTYPE == torch.float32
+    res = yt_integrate(_crystal(), np.random.default_rng(0).random((6, 6, 6)),
+                       device="cpu")
+    assert res._chiP.device.type == "cpu"
+    assert res._chis(adjoint=True) == (None, None)   # plain f64 route
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(os.path, "exists",
+                        lambda p: False if p.endswith("nvcc") else True)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _ext.nvcc_path()
+
+
+def test_kernel_library_name_tracks_sources():
+    a = _ext._lib_path("yt_pass")
+    b = _ext._lib_path("yt_gs_pass")
+    assert a != b and a.startswith(_ext.BUILD_DIR)
+    assert set(_ext.SOURCES) == {"yt_pass", "yt_gs_pass"}
+    for src in _ext.SOURCES.values():
+        assert os.path.exists(os.path.join(_ext.CSRC, src))
+    assert "-gencode=arch=compute_90a,code=sm_90a" in _ext.NVCC_FLAGS

@@ -1,0 +1,226 @@
+"""The torch port's whole slice against the JAX package, on the CPU:
+structure -> promolecular density -> grid -> intgrid(method="yt").
+
+The NaCl analogue is the yt256 leg of tools/parity_bench.py at 32^3.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from critic2_tpu import System as JSystem
+from critic2_tpu.analysis import integration as jint
+from critic2_tpu.crystal.cell import m_x2c_from_cellpar
+from critic2_tpu.crystal.crystal import Crystal, Species
+from critic2_tpu.fields import promol as jpromol
+from critic2_tpu.fields.field import Field as JField
+from critic2_tpu.fields.grid3 import Grid3 as JGrid3
+from critic2_tpu_torch import System
+from critic2_tpu_torch.analysis import integration as tint
+from critic2_tpu_torch.convert import (crystal_from_arrays,
+                                       crystal_to_arrays,
+                                       system_from_arrays)
+from critic2_tpu_torch.fields import promol as tpromol
+from critic2_tpu_torch.fields.grid1 import atomic_density_at
+from critic2_tpu_torch.fields.grid3 import Grid3
+
+CPU = "cpu"
+
+
+def _nacl():
+    return Crystal(m_x2c=m_x2c_from_cellpar([10.66] * 3, [90] * 3),
+                   x_frac=np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5],
+                                    [0.5, 0.5, 0.0], [0.0, 0.0, 0.5]]),
+                   species_of=np.array([0, 1, 0, 1]),
+                   species=[Species("Na", 11), Species("Cl", 17)])
+
+
+def _port(c):
+    return crystal_from_arrays(**crystal_to_arrays(c))
+
+
+@pytest.fixture(scope="module")
+def nacl32():
+    """(JAX system, port system, rho (32,)*3 numpy from the JAX side) with
+    the rasterized promolecular grid loaded as the reference field."""
+    c = _nacl()
+    js = JSystem.from_structure(c)
+    g = np.asarray(jint._rasterize_field(js.fields[0], (32, 32, 32)))
+    js.load_field(JField.from_grid(c, JGrid3(jnp.asarray(g)), name="pg"))
+    ts = system_from_arrays(**crystal_to_arrays(c), grid=g, device=CPU)
+    return js, ts, g
+
+
+@pytest.mark.parametrize("nder", [0, 1, 2])
+def test_promolecular_soa_matches_jax(nder):
+    c = _nacl()
+    jenv = jpromol.PromolEnv(c)
+    tenv = tpromol.PromolEnv(_port(c), device=CPU)
+    assert tenv.atpos.shape == tuple(jenv.atpos.shape)
+    rng = np.random.default_rng(11)
+    pts = rng.random((3, 500)) * 10.66
+    pts[:, 0] = 0.0                       # on a nucleus
+    pts[:, 1] = 1e-9                      # beside it
+    jf = jpromol.promolecular_soa(jnp.asarray(pts), jenv.atpos, jenv.atspc,
+                                  jenv.tab, nder=nder)
+    tf = tpromol.promolecular_soa(torch.as_tensor(pts), tenv.atpos,
+                                  tenv.atspc, tenv.tab, nder=nder)
+    for a, b in zip(tf, jf):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-13,
+                                   atol=1e-13 * max(np.abs(b).max(), 1e-300))
+
+
+def test_rasterized_promolecular_grid_matches_jax(nacl32):
+    _, _, g = nacl32
+    ts = System.from_structure(_port(_nacl()), device=CPU)
+    gt = tint._rasterize_field(ts.fields[0], (32, 32, 32), block=4096)
+    assert gt.shape == (32, 32, 32) and gt.dtype == torch.float64
+    np.testing.assert_allclose(gt.numpy(), g, rtol=1e-13, atol=0)
+
+
+def test_intgrid_yt_matches_jax(nacl32):
+    js, ts, g = nacl32
+    rj = jint.intgrid(js, method="yt")
+    rt = tint.intgrid(ts, method="yt")
+    assert rt.nattr_raw == rj.nattr_raw
+    assert [(r.name, r.atom) for r in rt.rows] == \
+        [(r.name, r.atom) for r in rj.rows]
+    for a, b in ((rt.charges, rj.charges), (rt.volumes, rj.volumes)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-10)
+    for r, q in zip(rt.rows, rj.rows):
+        np.testing.assert_array_equal(r.xfrac, q.xfrac)
+    dv = rt.decomp.crystal.volume / g.size
+    assert abs(rt.charges.sum() - g.sum() * dv) < 1e-8
+    assert abs(rt.volumes.sum() - rt.decomp.crystal.volume) < 1e-8
+    assert rt.table().splitlines()[0] == rj.table().splitlines()[0]
+
+
+def test_intgrid_extra_fields_and_options_match_jax(nacl32):
+    js, ts, g = nacl32
+    extra = {"sq": g ** 2}
+    rj = jint.intgrid(js, method="yt", fields=extra, noatoms=True)
+    rt = tint.intgrid(ts, method="yt", fields=extra, noatoms=True)
+    assert [r.name for r in rt.rows] == [r.name for r in rj.rows]
+    np.testing.assert_allclose([r.extra["sq"] for r in rt.rows],
+                               [r.extra["sq"] for r in rj.rows],
+                               rtol=1e-10, atol=0)
+    with pytest.raises(NotImplementedError):
+        tint.intgrid(ts, method="bader")
+    with pytest.raises(NotImplementedError):
+        tint.intgrid(ts, discard="rho")
+    with pytest.raises(ValueError):
+        tint.intgrid(ts, method="nope")
+
+
+def test_intgrid_promolecular_reference_matches_jax():
+    """A promolecular reference field is rasterized inside intgrid."""
+    c = _nacl()
+    rj = jint.intgrid(JSystem.from_structure(c), grid_shape=(20, 20, 20))
+    rt = tint.intgrid(System.from_structure(_port(c), device=CPU),
+                      grid_shape=(20, 20, 20))
+    assert [r.name for r in rt.rows] == [r.name for r in rj.rows]
+    np.testing.assert_allclose(rt.charges, rj.charges, rtol=0, atol=1e-10)
+
+
+def test_core_augmented_basin_field_matches_jax():
+    c = _nacl()
+    zpsp = {11: 9, 17: 7}
+    jenv = jpromol.PromolEnv(c, zpsp=zpsp)
+    tenv = tpromol.PromolEnv(_port(c), zpsp=zpsp, device=CPU)
+    gj = np.asarray(jint._rasterize_env(c, jenv, (12, 12, 12)))
+    gt = tint._rasterize_env(_port(c), tenv, (12, 12, 12), block=500)
+    np.testing.assert_allclose(gt.numpy(), gj, rtol=1e-13, atol=0)
+
+
+def test_atomic_density_at_matches_jax():
+    from critic2_tpu.fields.grid1 import atomic_density_at as jat
+
+    zs = [11, 17, 17, 11]
+    dist = [0.3, 1.1, 4.0, 0.01]
+    np.testing.assert_allclose(atomic_density_at(zs, dist, device=CPU),
+                               jat(zs, dist), rtol=1e-13)
+
+
+def _write_cube(path, c, g):
+    n = g.shape
+    vox = np.asarray(c.m_x2c) / np.asarray(n)[None, :]
+    with open(path, "w") as fh:
+        fh.write("cube written by numpy\nsecond comment line\n")
+        fh.write(f"{len(c.x_frac):5d} 0.0 0.0 0.0\n")
+        for i in range(3):
+            fh.write(f"{n[i]:5d} {vox[0, i]:.12f} {vox[1, i]:.12f} "
+                     f"{vox[2, i]:.12f}\n")
+        for x, sp in zip(c.x_cart, c.species_of):
+            z = c.species[sp].z
+            fh.write(f"{z:5d} {float(z):.6f} {x[0]:.12f} {x[1]:.12f} "
+                     f"{x[2]:.12f}\n")
+        vals = g.reshape(-1)
+        for lo in range(0, len(vals), 6):
+            fh.write(" ".join(f"{v:.16e}" for v in vals[lo:lo + 6]) + "\n")
+
+
+def test_cube_file_read_by_both(tmp_path, nacl32):
+    js, _, g = nacl32
+    c = _nacl()
+    path = str(tmp_path / "rho.cube")
+    _write_cube(path, c, g[:, :24, :20])
+    gj = np.asarray(JGrid3.read_cube(path).f)
+    gt = Grid3.read_cube(path, device=CPU).f
+    assert gt.dtype == torch.float64
+    np.testing.assert_array_equal(gt.numpy(), gj)
+    np.testing.assert_array_equal(gt.numpy(), g[:, :24, :20])
+    ts = System.from_structure(_port(c), device=CPU)
+    fid = ts.load_field(path, name="cube")
+    assert ts.iref == fid and ts.ref.type == "grid"
+    assert ts.field("cube") is ts.ref
+    np.testing.assert_array_equal(ts.ref.grid.f.numpy(), gj)
+    with pytest.raises(NotImplementedError):
+        ts.load_field(str(tmp_path / "CHGCAR"))
+
+
+def test_convert_round_trips(nacl32):
+    c = _nacl()
+    arrs = crystal_to_arrays(c)
+    back = crystal_to_arrays(crystal_from_arrays(**arrs))
+    for k in ("m_x2c", "x_frac", "species_of"):
+        np.testing.assert_array_equal(back[k], arrs[k])
+    assert back["species"] == arrs["species"] == [("Na", 11), ("Cl", 17)]
+    tc = crystal_from_arrays(**arrs)
+    assert tc.volume == c.volume
+    np.testing.assert_array_equal(tc.zatoms, c.zatoms)
+    np.testing.assert_allclose(tc.ws.areas, c.ws.areas, rtol=0, atol=0)
+    np.testing.assert_allclose(tc.distance(c.x_frac[0], c.x_frac[1]),
+                               c.distance(c.x_frac[0], c.x_frac[1]),
+                               rtol=1e-15)
+    pj, sj, cj = c.atomic_environment(12.0)
+    pt, st, ct = tc.atomic_environment(12.0)
+    np.testing.assert_array_equal(pt, pj)
+    np.testing.assert_array_equal(st, sj)
+    _, ts, g = nacl32
+    assert ts.iref == 1 and ts.ref.grid.f.dtype == torch.float64
+    np.testing.assert_array_equal(ts.ref.grid.f.numpy(), g)
+    assert ts.fields[0].type == "promol"
+    with pytest.raises(NotImplementedError):
+        tc.spacegroup
+
+
+def test_intgrid_core_augmented_matches_jax(nacl32):
+    """usecore + zpsp: the basin field is the grid plus the promolecular
+    core density (reference src/integration@proc.f90:176-183)."""
+    js, _, g = nacl32
+    c = _nacl()
+    zpsp = {11: 9, 17: 7}
+    gs = g[::2, ::2, ::2].copy()
+    jsys = JSystem.from_structure(c)
+    jsys.load_field(JField.from_grid(c, JGrid3(jnp.asarray(gs))))
+    jsys.ref.set_options(core=True, zpsp=zpsp)
+    tsys = system_from_arrays(**crystal_to_arrays(c), grid=gs, device=CPU)
+    tsys.ref.set_options(core=True, zpsp=zpsp)
+    assert tsys.ref.coreenv is not None
+    rj = jint.intgrid(jsys, method="yt")
+    rt = tint.intgrid(tsys, method="yt")
+    np.testing.assert_allclose(rt.rho.numpy(), np.asarray(rj.rho),
+                               rtol=1e-13, atol=0)
+    assert [r.name for r in rt.rows] == [r.name for r in rj.rows]
+    np.testing.assert_allclose(rt.charges, rj.charges, rtol=0, atol=1e-10)
