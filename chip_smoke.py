@@ -9,17 +9,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   2. build every CUDA kernel of the port from critic2_tpu_torch/csrc/;
   3. hold each kernel against its plain PyTorch version on the card:
      cubic (K=6) and triclinic (K=14) grid lattices at 48^3, P=2, float32
-     and float64, adjoint and forward; yt_pass must match to rtol 1e-6
-     (f32) / 1e-13 (f64); yt_gs_pass sweep pairs are iterated to a zero
-     flag and the fixpoints and every flag must agree;
+     and float64, adjoint and forward; then shapes that stress
+     yt_gs_pass's tiles: P=1, P=8 forward (as labels calls it), P=12 (more
+     integrands than one launch holds, so the wrapper launches chunks), a
+     40x50x37 grid whose tiles are ragged on both plane axes, a smooth
+     single-maximum density whose in-plane chains cross many tiles, and
+     an 8x264x264 grid whose tiles exceed a block's threads.
+     yt_pass must match to rtol 1e-6 (f32) / 1e-13 (f64); yt_gs_pass
+     sweep pairs are iterated to a zero flag and the fixpoints must be
+     bitwise equal and every flag the same;
   4. the slice: promolecular NaCl analogue (a = 10.66 bohr, 4 atoms)
      rasterized on the card, System -> intgrid(method="yt") once warm and
      once timed with the launch counts reset just before; partition of
      unity and agreement with the f64 Jacobi route (_xla_sweep) on the
      same card to 1e-8 e per basin; each kernel against its plain version
-     at the shapes the slice gives it;
+     at the shapes the slice gives it (yt_gs_pass bitwise);
   5. per-kernel times at the slice's shape with CUDA events, beside the
-     plain versions and the bytes bound;
+     plain versions and the bytes bound; yt_gs_pass's grid barriers per
+     sweep beside the earlier global-Jacobi schedule's count (from the
+     plain version's in-plane iterations), and the time, grid barriers
+     and block 0's local iterations of each of the 16 sweeps of one
+     adjoint solve;
 then one JSON line of kernel records and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -67,25 +77,45 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def density(crystal, n, rng):
-    """Two-Gaussian density with a little noise (plateaus broken)."""
+def density(crystal, shape, rng, noise=1e-3, nsite=2):
+    """Gaussians at the crystal's first nsite sites, plus uniform noise
+    (plateaus broken) unless noise is 0."""
     import numpy as np
 
-    g = np.stack(np.meshgrid(*[np.arange(n) / n] * 3, indexing="ij"), -1)
-    rho = np.zeros((n, n, n))
-    for site, amp in zip(crystal.x_frac, (1.0, 0.8)):
+    g = np.stack(np.meshgrid(*[np.arange(n) / n for n in shape],
+                             indexing="ij"), -1)
+    rho = np.zeros(shape)
+    for site, amp in list(zip(crystal.x_frac, (1.0, 0.8)))[:nsite]:
         d = g - site
         d -= np.rint(d)
         rho += amp * np.exp(-((d @ crystal.m_x2c.T) ** 2).sum(-1))
-    return rho + 1e-3 * rng.random(rho.shape)
+    return rho + noise * rng.random(rho.shape)
 
 
 def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
 
 
+def gs_fixpoint(gs, op, f3, offs, adjoint, tag):
+    """Gauss-Seidel sweep pairs from f to a pair with both flags 0; returns
+    (fixpoint, flags, the first sweep's schedule counters)."""
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    s, flags, first = f3, [], None
+    for _ in range(sum(f3.shape[1:]) + 16):
+        s, c1 = gs(op, s, f3, offs=offs, adjoint=adjoint, backward=False)
+        if first is None:
+            first = ops.gs_counts()
+        s, c2 = gs(op, s, f3, offs=offs, adjoint=adjoint, backward=True)
+        flags.append((int(c1), int(c2)))
+        if flags[-1] == (0, 0):
+            return s, flags, first
+    raise RuntimeError(f"yt_gs_pass {tag}: no fixpoint")
+
+
 def kernel_phase(dev, n):
-    """Phase 3: every kernel against its plain version at n^3, P=2."""
+    """Phase 3: every kernel against its plain version: n^3, P=2 on both
+    lattices, then the shapes that stress yt_gs_pass's tiles."""
     import numpy as np
     import torch
 
@@ -97,51 +127,75 @@ def kernel_phase(dev, n):
     rng = np.random.default_rng(7)
     lattices = {"cubic": ([8.0, 8.0, 8.0], [90, 90, 90]),
                 "triclinic": ([8.0, 7.0, 6.5], [75, 80, 70])}
-    for lname, cell in lattices.items():
-        c = Crystal(m_x2c=m_x2c_from_cellpar(*cell),
+    f32, f64 = torch.float32, torch.float64
+    # (lattice, shape, P, dtypes, directions, density noise, sites)
+    cases = [(lat, (n,) * 3, 2, (f32, f64), (True, False), 1e-3, 2)
+             for lat in lattices]
+    cases += [
+        # labels' forward solve of a chunk of 8 basins
+        ("cubic", (n,) * 3, 8, (f32,), (False,), 1e-3, 2),
+        ("triclinic", (n,) * 3, 8, (f64,), (False,), 1e-3, 2),
+        # more integrands than one launch holds: chunks of 8 and 4
+        ("cubic", (n,) * 3, 12, (f32, f64), (False,), 1e-3, 2),
+        # one integrand (volumes alone)
+        ("triclinic", (n,) * 3, 1, (f32, f64), (True,), 1e-3, 2),
+        # n2, n3 not multiples of the tile (13 x 19 on 50 x 37)
+        ("cubic", (40, 50, 37), 2, (f32, f64), (True,), 1e-3, 2),
+        # one smooth maximum: in-plane chains cross many tiles
+        ("cubic", (n,) * 3, 2, (f32,), (True, False), 0.0, 1),
+        # tiles of more points than a block has threads (the general path)
+        ("cubic", (8, 264, 264), 2, (f32,), (True,), 1e-3, 2)]
+    for lname, shape, P, dtypes, dirs, noise, nsite in cases:
+        c = Crystal(m_x2c=m_x2c_from_cellpar(*lattices[lname]),
                     x_frac=np.array([[0.25, 0.25, 0.25], [0.75, 0.7, 0.6]]),
                     species_of=np.array([0, 0]), species=[Species("C", 6)])
-        rho = torch.as_tensor(density(c, n, rng), dtype=torch.float64,
-                              device=dev)
+        rho = torch.as_tensor(density(c, shape, rng, noise, nsite),
+                              dtype=torch.float64, device=dev)
         offs_np, wts = yt._grid_ws_neighbors(c, rho.shape)
         offs = tuple(tuple(int(v) for v in o) for o in offs_np)
         chi, _ = yt._flux_tensors(rho, wts, offs)
-        s_rand = torch.as_tensor(rng.random((2, n, n, n)), device=dev)
-        f64 = torch.stack([torch.ones_like(rho), rho])
-        for dt, rtol in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
-            for adjoint in (True, False):
+        s_rand = torch.as_tensor(rng.random((P,) + shape), device=dev)
+        fs = torch.cat([torch.stack([torch.ones_like(rho), rho]),
+                        torch.as_tensor(rng.random((P,) + shape),
+                                        device=dev)])[:P]
+        for dt in dtypes:
+            rtol = 1e-6 if dt == f32 else 1e-13
+            for adjoint in dirs:
                 op = yt._shifted(chi, offs, dt) if adjoint else chi.to(dt)
-                f3 = f64.to(dt)
+                f3 = fs.to(dt)
                 s = s_rand.to(dt)
-                tag = (f"{lname} K={len(offs)} {str(dt)[6:]} "
-                       f"{'adjoint' if adjoint else 'forward'}")
+                tag = (f"{lname} {'x'.join(map(str, shape))} K={len(offs)} "
+                       f"P={P} {str(dt)[6:]} "
+                       f"{'adjoint' if adjoint else 'forward'}"
+                       f"{' smooth' if noise == 0 else ''}")
                 out_k = ops.yt_pass(op, s, f3, offs=offs, adjoint=adjoint)
                 out_p = ops.yt_pass_plain(op, s, f3, offs=offs,
                                           adjoint=adjoint)
                 e = rel_err(out_k, out_p)
                 check(e <= rtol, f"yt_pass {tag}: rel err {e:.3e} > {rtol}")
 
-                def fixpoint(gs):
-                    s, flags = f3, []
-                    for _ in range(sum(f3.shape[1:]) + 16):
-                        s, c1 = gs(op, s, f3, offs=offs, adjoint=adjoint,
-                                   backward=False)
-                        s, c2 = gs(op, s, f3, offs=offs, adjoint=adjoint,
-                                   backward=True)
-                        flags.append((int(c1), int(c2)))
-                        if flags[-1] == (0, 0):
-                            return s, flags
-                    raise RuntimeError(f"yt_gs_pass {tag}: no fixpoint")
-
-                sk, fk = fixpoint(ops.yt_gs_pass)
-                sp, fp = fixpoint(ops.yt_gs_pass_plain)
-                eg = rel_err(sk, sp)
+                sk, fk, ck = gs_fixpoint(ops.yt_gs_pass, op, f3, offs,
+                                         adjoint, tag)
+                sp, fp, cp = gs_fixpoint(ops.yt_gs_pass_plain, op, f3, offs,
+                                         adjoint, tag)
                 check(fk == fp, f"yt_gs_pass {tag}: flags {fk} vs {fp}")
-                check(eg <= rtol, f"yt_gs_pass {tag}: fixpoint rel err "
-                      f"{eg:.3e} > {rtol}")
-                log(f"kernel check {tag}: yt_pass rel err {e:.3e}, "
-                    f"yt_gs_pass fixpoint rel err {eg:.3e} after "
-                    f"{len(fk)} pairs")
+                check(torch.equal(sk, sp), f"yt_gs_pass {tag}: fixpoints "
+                      f"differ, rel err {rel_err(sk, sp):.3e}")
+                log(f"kernel check {tag}: yt_pass rel err {e:.3e}; "
+                    f"yt_gs_pass fixpoint bitwise equal after {len(fk)} "
+                    f"pairs, tile {ck['tile'][0]}x{ck['tile'][1]} x "
+                    f"{ck['tiles']}, {ck['pc']} integrands a launch, "
+                    f"first sweep grid barriers {ck['grid_barriers']} "
+                    f"(global-Jacobi schedule {cp['old_grid_barriers']})")
+                ty, tz = ck["tile"]
+                if shape == (40, 50, 37):
+                    check(shape[1] % ty and shape[2] % tz,
+                          f"{tag}: tile {ty}x{tz} divides the plane")
+                if shape == (8, 264, 264):
+                    check(not ck["res"], f"{tag}: tile {ty}x{tz} holds its "
+                          "points in registers")
+                check((ck["pc"] < P) == (P > ops.GS_MAXP),
+                      f"{tag}: {ck['pc']} integrands a launch")
     log(json.dumps({"kernels_checked": ["yt_pass", "yt_gs_pass"]}))
 
 
@@ -273,20 +327,37 @@ def main_shape_phase(sl):
     # yt_gs_pass as the slice calls it: f32, adjoint, first pair from f
     f32 = f3.to(torch.float32)
 
-    def pair(gs, op, ff):
+    def pair(gs, op, ff, counts=None):
+        """One forward + backward pair from ff; flags stay on the device
+        (counts, when given, takes each sweep's schedule counters)."""
         a, c1 = gs(op, ff, ff, offs=offs, backward=False)
+        if counts is not None:
+            counts.append(ops.gs_counts())
         b, c2 = gs(op, a, ff, offs=offs, backward=True)
-        return b, int(c1), int(c2)
+        if counts is not None:
+            counts.append(ops.gs_counts())
+        return b, c1, c2
 
-    bk, k1, k2 = pair(ops.yt_gs_pass, chi32, f32)
-    got = []
+    kc, pc, got = [], [], []
+    bk, k1, k2 = pair(ops.yt_gs_pass, chi32, f32, kc)
     plain_gs = cuda_ms(lambda: got.append(
-        pair(ops.yt_gs_pass_plain, chi32, f32)), 1, warm=0) / 2
+        pair(ops.yt_gs_pass_plain, chi32, f32, pc)), 1, warm=0) / 2
     bp, p1, p2 = got[0]
+    flags_k, flags_p = (int(k1), int(k2)), (int(p1), int(p2))
     err = float((bk - bp).abs().max())
-    check((k1, k2) == (p1, p2), f"flags {(k1, k2)} vs {(p1, p2)}")
-    check(err <= 1e-6 * float(bp.abs().max()),
-          f"yt_gs_pass err {err:.3e}")
+    check(flags_k == flags_p, f"flags {flags_k} vs {flags_p}")
+    check(torch.equal(bk, bp), f"yt_gs_pass first pair differs: {err:.3e}")
+    for j, (ck, cp) in enumerate(zip(kc, pc)):
+        log(f"yt_gs_pass first pair, sweep {j + 1}: grid barriers "
+            f"{ck['grid_barriers']} (= tile rounds; tile "
+            f"{ck['tile'][0]}x{ck['tile'][1]} x {ck['tiles']}), block 0's "
+            f"local iterations {ck['local_iters_block0']}; global-Jacobi "
+            f"schedule {cp['old_grid_barriers']} (in-plane Jacobi "
+            f"iterations {sum(cp['jacobi_iters'])} + "
+            f"{len(cp['jacobi_iters'])} planes)")
+        check(ck["grid_barriers"] < cp["old_grid_barriers"],
+              f"sweep {j + 1}: {ck['grid_barriers']} grid barriers, not "
+              f"fewer than {cp['old_grid_barriers']}")
     gms = {}
     for dt, op in ((torch.float32, chi32), (torch.float64, chi64)):
         ff = f3.to(dt)
@@ -295,9 +366,52 @@ def main_shape_phase(sl):
             f"f {gms[dt]:.4f} ms per sweep, bytes bound "
             f"{(K + 3 * P) * N * dt.itemsize / HBM_BYTES_PER_S * 1e3:.4f} ms")
     log(f"yt_gs_pass plain float32: {plain_gs:.4f} ms per sweep")
+
+    # the 16 sweeps of one adjoint solve, as _solve_sweep runs them: 4
+    # pairs on f, the f64 residual by yt_pass, 4 pairs on the residual
+    sweeps = []
+
+    def pairs4(rhs):
+        s = rhs
+        for j in range(8):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            s, _ = ops.yt_gs_pass(chi32, s, rhs, offs=offs,
+                                  backward=j % 2 == 1)
+            b.record()
+            sweeps.append((a, b, ops.gs_counts()))
+        return s
+
+    s1 = pairs4(f32).to(f3.dtype)
+    r = ops.yt_pass(chi64, s1, f3, offs=offs) - s1
+    solved = s1 + pairs4(r.to(torch.float32)).to(f3.dtype)
+    torch.cuda.synchronize()
+    check(torch.equal(solved, yt._solve_sweep(res._chiP, chi32, chi64, f3,
+                                              offs)),
+          "the timed sweeps differ from _solve_sweep")
+    sweep_ms = [a.elapsed_time(b) for a, b, _ in sweeps]
+    barriers = [c["grid_barriers"] for _, _, c in sweeps]
+    local = [c["local_iters_block0"] for _, _, c in sweeps]
+    for j, (t_ms, nb, nl) in enumerate(zip(sweep_ms, barriers, local)):
+        log(f"adjoint solve sweep {j + 1:2d} "
+            f"({'residual' if j >= 8 else 'f'}, "
+            f"{'backward' if j % 2 else 'forward'}): {t_ms:.4f} ms, grid "
+            f"barriers {nb}, block 0's local iterations {nl}")
+    log(f"adjoint solve: 16 sweeps {sum(sweep_ms):.4f} ms")
     out["yt_gs_pass"] = dict(
         max_abs_err=err, ms=gms[torch.float32], plain_ms=plain_gs,
-        bound_ms=(K + 3 * P) * N * 4 / HBM_BYTES_PER_S * 1e3)
+        bound_ms=(K + 3 * P) * N * 4 / HBM_BYTES_PER_S * 1e3,
+        extra={"ms_f64": gms[torch.float64],
+               "tile": list(kc[0]["tile"]), "tiles": kc[0]["tiles"],
+               "grid_barriers_first_pair": [c["grid_barriers"] for c in kc],
+               "local_iters_block0_first_pair":
+                   [c["local_iters_block0"] for c in kc],
+               "old_grid_barriers_first_pair": [c["old_grid_barriers"]
+                                                for c in pc],
+               "solve_sweep_ms": sweep_ms,
+               "solve_grid_barriers": barriers,
+               "solve_local_iters_block0": local})
 
     # open question: f64 Gauss-Seidel directly vs f32 + one refinement
     ref = yt._solve_sweep(res._chiP, chi32, chi64, f3, offs)
@@ -419,7 +533,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": sl["launches"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": "bytes", "library_ms": None, **m.get("extra", {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

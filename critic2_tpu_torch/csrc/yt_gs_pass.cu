@@ -6,37 +6,83 @@
 //   * planes i = 0 .. n1-1 in order (n1-1 .. 0 when `backward`);
 //   * base = f[:, i] + sum over the cross-plane neighbours (those with
 //     d0 < 0 first, then d0 > 0, each in k order) of chi[k, i] * nb, where
-//     nb is read from `out` when its plane lies on the already-swept side
-//     and did not wrap around the periodic boundary, and from the old `s`
-//     otherwise;
+//     nb is read from the swept planes when its plane lies on the already
+//     swept side and did not wrap around the periodic boundary, and from
+//     the old `s` otherwise;
 //   * the in-plane sub-system u = base + sum_{d0 == 0} chi[k, i] * u[+d]
-//     is solved by Jacobi iteration between two plane buffers, warm-started
-//     from the plane's old value, until no point changes (the in-plane
-//     operator is nilpotent, so this ends at a bitwise fixpoint);
+//     is solved exactly, warm-started from the plane's old value, until no
+//     point changes;
 //   * the plane is written to `out` and "changed versus the old s" is OR-ed
 //     into the int32 flag.
 // Built with -fmad=false, so every term is one rounded product and one
 // rounded sum, as in the plain PyTorch version.
 //
-// The TPU ran the planes as a sequential grid with a VMEM carry. On Hopper
-// the blocks of a grid run in no order, so this is one persistent
-// cooperative kernel: all blocks walk the planes together and meet at a
-// grid-wide barrier (cooperative_groups::this_grid().sync()) after each
-// in-plane iteration and after each plane. The grid is sized from the
-// occupancy calculator times the SM count (a larger grid would deadlock at
-// the barrier) and capped at one thread per (p, y, z) of a plane.
+// Why any schedule of the in-plane solve gives the same bits: the in-plane
+// operator is nilpotent (its dependency graph is a DAG in density-rank
+// order). At a stationary state every point holds the one rounded
+// expression base + sum chi * u[nb] of values that are themselves final,
+// so the fixpoint is unique, and every schedule that stops at bitwise
+// stationarity reaches it.
 //
-// Bound on an H100: bytes for the (K + 3P) words per point of one sweep,
-// but in practice the barriers: one per in-plane iteration, so the first
-// sweep, which walks the longest in-plane chains, is barrier-bound. Plane
-// buffers are small (P * n2 * n3 words) and stay in L2; every load of data
-// written inside this launch uses ld.global.cg (__ldcg) so no stale L1 line
-// is read.
+// Design for Hopper. The TPU held a whole plane in VMEM and ran the
+// in-plane loop there. A 256^2 plane of u, base and the in-plane chi does
+// not fit one SM's shared memory, so the plane is cut into tiles, one per
+// block, that stay resident for the whole launch:
+//   * a persistent cooperative kernel; block b owns the (ty, tz) tile b of
+//     the (y, z) plane for all P, for every plane; the wrapper chooses the
+//     tile so that the tile count is at most the co-resident block count
+//     (checked here with the occupancy calculator);
+//   * per plane, the block computes its tile's base from the cross-plane
+//     neighbours and loads the in-plane chi and the warm start, with a
+//     halo of width h (the largest in-plane |d1|, |d2|) in shared memory;
+//     when the tile has at most one point per thread, the point's chi,
+//     base and current value stay in that thread's registers;
+//   * rounds of block-Jacobi over the tiles: in a round each block iterates
+//     its tile by Jacobi in shared memory, behind __syncthreads_or, until
+//     it is bitwise stationary with its halo held fixed or has taken
+//     YT_GS_LOCAL_CAP iterations, publishes the tile to a plane-sized
+//     exchange buffer and meets the others at ONE grid barrier; the next
+//     round reloads the halo from that buffer. The rounds end when every
+//     tile is stationary and none changed a point within h of its edge
+//     (only those points are ever another tile's halo), which is global
+//     stationarity;
+//   * the exchange buffers alternate between rounds (round G reads buffer
+//     G % 2 and writes buffer (G + 1) % 2), so no block reads a halo that
+//     another block is rewriting in the same round; the last round's
+//     buffer is also where the next plane reads this plane from, so a
+//     plane costs exactly its rounds in grid barriers.
+// The earlier schedule of this kernel (global Jacobi, one grid barrier per
+// in-plane iteration plus one per plane) paid the longest in-plane chain in
+// grid barriers; this one pays it in block-local iterations, and a grid
+// barrier per round.
+//
+// Bound on an H100: bytes for the (K + 3P) words per point of one sweep.
+// In practice the block-local iterations of the slowest tile in each round
+// (instruction issue and the block barrier) and the grid barriers of the
+// rounds. There is no product to tile, so tensor cores do nothing here,
+// and the plane set-up is a few per cent of the time, so it is not
+// overlapped with asynchronous copies. Every
+// load of data written inside this launch (the swept planes, the exchange
+// buffers) uses ld.global.cg (__ldcg) so no stale L1 line is read.
+//
+// Counters (int64, accumulated over launches into `counts`):
+//   [0] grid barriers (= tile rounds summed over planes),
+//   [1] block 0's local iterations summed over planes.
 #include <cooperative_groups.h>
+
+#include <cstdlib>
 
 #include "yt_common.cuh"
 
 namespace cg = cooperative_groups;
+
+#define YT_GS_THREADS 512
+// the most local iterations a tile takes in one round: past it, a tile
+// re-walks chains whose halo is about to change, and another round is
+// cheaper. 12 was the fastest of 4 to 32 and uncapped on the 256^3 NaCl
+// analogue (PERF.md).
+#define YT_GS_LOCAL_CAP 12
+#define YT_GS_EDGE (1 << 30)    // bit of a tile point's offset entry
 
 struct GsDisp {
     int ncross;                 // cross-plane neighbours, summation order
@@ -47,120 +93,305 @@ struct GsDisp {
     int di[YT_MAXK][2];
 };
 
-template <typename T>
-__global__ void __launch_bounds__(256)
+// PM: the largest P this instance serves; the P integrands of a point live
+// in registers, so one point's neighbour loads serve all of them. NI: the
+// number of in-plane neighbours, or YT_MAXK for any count up to it; with
+// NI fixed the neighbour loop unrolls and a point's loads issue together.
+// RES: the tile has at most one point per thread, whose in-plane chi, base
+// and current value then stay in registers for the whole plane; a local
+// iteration reads only the neighbours from shared memory. Larger tiles
+// keep them in shared memory and loop over the points.
+template <typename T, int PM, int NI, bool RES>
+__global__ void __launch_bounds__(YT_GS_THREADS)
 yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
-             const T* __restrict__ f, T* out, int* flag, T* base, T* buf0,
-             T* buf1, int* chg, int P, int n1, int n2, int n3, int backward,
-             GsDisp g) {
+             const T* __restrict__ f, T* out, int* flag, T* xb0, T* xb1,
+             int* chg, long long* counts, int P, int n1, int n2, int n3,
+             int backward, int h, int TY, int TZ, GsDisp g) {
+    extern __shared__ __align__(16) unsigned char yt_smem[];
+    __shared__ int nring;
+
     cg::grid_group grid = cg::this_grid();
+    const int A = TY * TZ;                 // tile points
+    const int Wz = TZ + 2 * h;             // halo'd row length
+    const int W = (TY + 2 * h) * Wz;       // halo'd tile points
+    const int AS = RES ? 0 : A;            // points kept in shared memory
+    T* chi_s = (T*)yt_smem;                // ninp x AS
+    T* base_s = chi_s + g.ninp * AS;       // P x AS
+    T* ua = base_s + P * AS;               // P x W, two Jacobi buffers
+    T* ub = ua + P * W;
+    int* lo_s = (int*)(ub + P * W);        // A: offset in ua (| EDGE), or -1
+    int* yz_s = lo_s + A;                  // A: y * n3 + z
+    int* rw_s = yz_s + A;                  // halo ring: offset in ua
+    int* ryz_s = rw_s + (W - A);           // halo ring: y * n3 + z
+
+    const int gz = (n3 + TZ - 1) / TZ;
+    const int y0 = (blockIdx.x / gz) * TY;
+    const int z0 = (blockIdx.x % gz) * TZ;
+    const int ny = min(TY, n2 - y0);
+    const int nz = min(TZ, n3 - z0);
     const int64_t plane = (int64_t)n2 * n3;
     const int64_t N = (int64_t)n1 * plane;
-    const int64_t M = (int64_t)P * plane;          // work items per plane
-    const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const int64_t nth = (int64_t)gridDim.x * blockDim.x;
-    unsigned it = 0;        // in-plane iteration count, same in all threads
+    const int tid = threadIdx.x;
+    const int bd = blockDim.x;
+    const bool lead = blockIdx.x == 0 && tid == 0;   // counts, flag slots
+
+    // the tile's tables, once per launch
+    const int ninp = NI == YT_MAXK ? g.ninp : NI;
+    int doff[NI];                          // in-plane neighbour offsets
+#pragma unroll
+    for (int c = 0; c < NI; ++c)
+        doff[c] = c < ninp ? g.di[c][0] * Wz + g.di[c][1] : 0;
+    if (tid == 0) nring = 0;
+    for (int l = tid; l < A; l += bd) {
+        const int ly = l / TZ;
+        const int lz = l - ly * TZ;
+        const bool in = ly < ny && lz < nz;
+        const bool edge = ly < h || ly >= ny - h || lz < h || lz >= nz - h;
+        lo_s[l] = in ? ((ly + h) * Wz + lz + h) | (edge ? YT_GS_EDGE : 0)
+                     : -1;
+        yz_s[l] = (y0 + ly) * n3 + z0 + lz;
+    }
+    __syncthreads();
+    for (int w = tid; w < W; w += bd) {
+        const int ly = w / Wz - h;
+        const int lz = w % Wz - h;
+        if (ly >= ny + h || lz >= nz + h) continue;
+        if (ly >= 0 && ly < ny && lz >= 0 && lz < nz) continue;
+        const int j = atomicAdd(&nring, 1);
+        rw_s[j] = w;
+        ryz_s[j] = yt_wrap(y0 + ly, n2) * n3 + yt_wrap(z0 + lz, n3);
+    }
+    __syncthreads();
+
+    unsigned G = 0;             // rounds so far, the same in every block
+    long long nlocal = 0;       // this block's local iterations
     int changed = 0;
+    T rch[NI], rbs[PM], rown[PM];          // RES: the thread's point
 
     for (int step = 0; step < n1; ++step) {
         const int i = backward ? n1 - 1 - step : step;
+        const int iprev = backward ? i + 1 : i - 1;
         const int64_t ioff = (int64_t)i * plane;
+        const T* prev = (G & 1) ? xb1 : xb0;   // plane iprev, if swept
+        T* cur = ua;
+        T* nxt = ub;
 
-        // 1. base from the cross-plane neighbours
-        for (int64_t q = tid; q < M; q += nth) {
-            const int64_t p = q / plane;
-            const int yz = (int)(q - p * plane);
+        // 1. the tile's in-plane chi, base and warm start
+        for (int l = tid; l < A; l += bd) {
+            const int lo = lo_s[l];
+            if (lo < 0) continue;
+            const int o = lo & (YT_GS_EDGE - 1);
+            const int yz = yz_s[l];
             const int y = yz / n3;
             const int z = yz - y * n3;
-            const int64_t pN = p * N;
-            T acc = f[pN + ioff + yz];
+#pragma unroll
+            for (int c = 0; c < NI; ++c) {
+                if (c < ninp) {
+                    const T v = chi[g.ki[c] * N + ioff + yz];
+                    if constexpr (RES) rch[c] = v;
+                    else chi_s[c * A + l] = v;
+                }
+            }
+            T acc[PM];
+#pragma unroll
+            for (int p = 0; p < PM; ++p)
+                if (p < P) acc[p] = f[p * N + ioff + yz];
             for (int c = 0; c < g.ncross; ++c) {
                 const int d0 = g.dc[c][0];
                 const int ii = i + d0;
                 const bool wrapped = ii < 0 || ii >= n1;
                 const bool swept = backward ? d0 > 0 : d0 < 0;
-                const int64_t idx = pN + (int64_t)yt_wrap(ii, n1) * plane
-                    + (int64_t)yt_wrap(y + g.dc[c][1], n2) * n3
-                    + yt_wrap(z + g.dc[c][2], n3);
-                const T v = (swept && !wrapped) ? __ldcg(out + idx) : s[idx];
-                acc = acc + chi[g.kc[c] * N + ioff + yz] * v;
+                const int64_t nyz = (int64_t)yt_wrap(y + g.dc[c][1], n2) * n3
+                                    + yt_wrap(z + g.dc[c][2], n3);
+                // the swept side: the previous plane from the exchange
+                // buffer, older ones from out; else the old s
+                const T* src;
+                int64_t sp = N;
+                if (swept && !wrapped && ii == iprev) {
+                    src = prev + nyz;
+                    sp = plane;
+                } else if (swept && !wrapped) {
+                    src = out + (int64_t)ii * plane + nyz;
+                } else {
+                    src = s + (int64_t)yt_wrap(ii, n1) * plane + nyz;
+                }
+                const T ch = chi[g.kc[c] * N + ioff + yz];
+#pragma unroll
+                for (int p = 0; p < PM; ++p)
+                    if (p < P) acc[p] = acc[p] + ch * __ldcg(src + p * sp);
             }
-            if (g.ninp == 0) {
-                out[pN + ioff + yz] = acc;
-                changed |= acc != s[pN + ioff + yz];
-            } else {
-                base[q] = acc;
+#pragma unroll
+            for (int p = 0; p < PM; ++p) {
+                if (p < P) {
+                    const T u = g.ninp ? s[p * N + ioff + yz] : acc[p];
+                    cur[p * W + o] = u;
+                    if constexpr (RES) {
+                        rbs[p] = acc[p];
+                        rown[p] = u;
+                    } else {
+                        base_s[p * A + l] = acc[p];
+                    }
+                }
+            }
+        }
+        __syncthreads();
+
+        // 2. rounds. chg[] holds three flag slots: slot G % 3 is written
+        // in round G and read after its barrier; the lead thread clears
+        // slot (G + 1) % 3, whose last readers all passed the previous
+        // barrier.
+        for (int64_t r = 0;; ++r) {
+            const int slot = G % 3;
+            if (lead) chg[(G + 1) % 3] = 0;
+            // the halo: the old s in round 0, else last round's buffer
+            const T* hsrc = r == 0 ? s + ioff : ((G & 1) ? xb1 : xb0);
+            const int64_t hp = r == 0 ? N : plane;
+            for (int j = tid; j < nring; j += bd) {
+                const int w = rw_s[j];
+                const T* src = hsrc + ryz_s[j];
+#pragma unroll
+                for (int p = 0; p < PM; ++p) {
+                    if (p < P) {
+                        const T v = __ldcg(src + p * hp);
+                        ua[p * W + w] = v;
+                        ub[p * W + w] = v;
+                    }
+                }
+            }
+            __syncthreads();
+
+            // local Jacobi cur -> nxt until the tile is stationary or has
+            // taken YT_GS_LOCAL_CAP iterations; eany: a point within h of
+            // the tile's edge changed this round, or the tile is not
+            // stationary
+            int eany = 0;
+            if (g.ninp > 0) {
+                for (int n = 0;; ++n) {
+                    int any = 0;
+                    for (int l = tid; l < A; l += bd) {
+                        const int lo = lo_s[l];
+                        if (lo < 0) continue;
+                        const int o = lo & (YT_GS_EDGE - 1);
+                        T ch[NI], un[PM];
+#pragma unroll
+                        for (int c = 0; c < NI; ++c)
+                            if (c < ninp)
+                                ch[c] = RES ? rch[c] : chi_s[c * A + l];
+#pragma unroll
+                        for (int p = 0; p < PM; ++p)
+                            if (p < P)
+                                un[p] = RES ? rbs[p] : base_s[p * A + l];
+#pragma unroll
+                        for (int c = 0; c < NI; ++c) {
+                            if (c < ninp) {
+                                const T* cp = cur + o + doff[c];
+#pragma unroll
+                                for (int p = 0; p < PM; ++p)
+                                    if (p < P)
+                                        un[p] = un[p] + ch[c] * cp[p * W];
+                            }
+                        }
+#pragma unroll
+                        for (int p = 0; p < PM; ++p) {
+                            if (p < P) {
+                                nxt[p * W + o] = un[p];
+                                const int d =
+                                    un[p] != (RES ? rown[p] : cur[p * W + o]);
+                                if constexpr (RES) rown[p] = un[p];
+                                any |= d;
+                                eany |= d && (lo & YT_GS_EDGE);
+                            }
+                        }
+                    }
+                    ++nlocal;
+                    if (!__syncthreads_or(any)) break;   // nxt == cur
+                    T* t = cur;
+                    cur = nxt;
+                    nxt = t;
+                    // (a nilpotent tile system is stationary within A + 1
+                    // iterations, so A + 2 only stops a hang)
+                    if (n + 1 >= min(YT_GS_LOCAL_CAP, A + 2)) {
+                        eany = 1;                  // the next round goes on
+                        break;
+                    }
+                }
+            }
+
+            // publish the tile to buffer (G + 1) % 2
+            T* pub = (G & 1) ? xb0 : xb1;
+            for (int l = tid; l < A; l += bd) {
+                const int lo = lo_s[l];
+                if (lo < 0) continue;
+                const int o = lo & (YT_GS_EDGE - 1);
+#pragma unroll
+                for (int p = 0; p < PM; ++p)
+                    if (p < P)
+                        pub[p * plane + yz_s[l]] =
+                            RES ? rown[p] : cur[p * W + o];
+            }
+            if (__syncthreads_or(eany) && tid == 0) atomicOr(chg + slot, 1);
+            grid.sync();
+            const int more = *(volatile int*)(chg + slot);
+            ++G;
+            if (!more) break;
+            if (r > plane + 1) {
+                if (lead) atomicOr(flag, 2);
+                break;
             }
         }
 
-        if (g.ninp > 0) {
-            // 2. in-plane Jacobi iterations: cur -> nxt, warm start from
-            // the old s plane. chg[] holds three flag slots: slot it % 3 is
-            // written in iteration it and read after its barrier; thread 0
-            // clears slot (it + 1) % 3, whose last readers all passed the
-            // previous barrier.
-            const T* cur = s + ioff;
-            int64_t curP = N;                      // p-stride of cur
-            T* nxt = buf0;
-            // the in-plane operator is nilpotent: Jacobi reaches its
-            // fixpoint within (plane points + 1) iterations; the cap only
-            // guards against a hang, and marks the flag with bit 2
-            for (int64_t n = 0;; ++n) {
-                const int slot = it % 3;
-                if (tid == 0) chg[(it + 1) % 3] = 0;
-                int any = 0;
-                for (int64_t q = tid; q < M; q += nth) {
-                    const int64_t p = q / plane;
-                    const int yz = (int)(q - p * plane);
-                    const int y = yz / n3;
-                    const int z = yz - y * n3;
-                    const T* cp = cur + p * curP;
-                    T un = __ldcg(base + q);
-                    for (int c = 0; c < g.ninp; ++c) {
-                        const int64_t nb =
-                            (int64_t)yt_wrap(y + g.di[c][0], n2) * n3
-                            + yt_wrap(z + g.di[c][1], n3);
-                        un = un + chi[g.ki[c] * N + ioff + yz] * __ldcg(cp + nb);
-                    }
-                    nxt[q] = un;
-                    any |= un != __ldcg(cp + yz);
+        // 3. write the plane
+        for (int l = tid; l < A; l += bd) {
+            const int lo = lo_s[l];
+            if (lo < 0) continue;
+            const int o = lo & (YT_GS_EDGE - 1);
+            const int64_t yz = ioff + yz_s[l];
+#pragma unroll
+            for (int p = 0; p < PM; ++p) {
+                if (p < P) {
+                    const T u = RES ? rown[p] : cur[p * W + o];
+                    out[p * N + yz] = u;
+                    changed |= u != s[p * N + yz];
                 }
-                if (__any_sync(0xffffffffu, any) && (threadIdx.x & 31) == 0)
-                    atomicOr(chg + slot, 1);
-                grid.sync();
-                const int more = *(volatile int*)(chg + slot);
-                ++it;
-                if (!more) break;               // nxt == cur bitwise
-                if (n > plane + 1) {
-                    if (tid == 0) atomicOr(flag, 2);
-                    break;
-                }
-                cur = nxt;
-                curP = plane;
-                nxt = (nxt == buf0) ? buf1 : buf0;
-            }
-            // 3. write the plane (each thread reads back its own points)
-            for (int64_t q = tid; q < M; q += nth) {
-                const int64_t p = q / plane;
-                const int64_t o = p * N + ioff + (q - p * plane);
-                const T u = __ldcg(nxt + q);
-                out[o] = u;
-                changed |= u != s[o];
             }
         }
-        grid.sync();            // plane i is visible to the next plane
+        // the next plane's set-up rewrites only what each thread itself
+        // read here, and the halo ring nobody reads here
     }
-    if (__any_sync(0xffffffffu, changed) && (threadIdx.x & 31) == 0)
+    if (__any_sync(0xffffffffu, changed) && (tid & 31) == 0)
         atomicOr(flag, 1);
+    if (lead) {
+        atomicAdd((unsigned long long*)counts, (unsigned long long)G);
+        atomicAdd((unsigned long long*)(counts + 1),
+                  (unsigned long long)nlocal);
+    }
+}
+
+template <typename T>
+using GsKernel = void (*)(const T*, const T*, const T*, T*, int*, T*, T*,
+                          int*, long long*, int, int, int, int, int, int,
+                          int, int, GsDisp);
+
+// The instance for ninp in-plane neighbours: a lattice plane's are those
+// of its own 2-D lattice, 4 (cubic, K = 6) or 6 (triclinic, K = 14), and
+// these two have instances with register-held points; tiles of more
+// points than threads, and any other count, take the general one.
+template <typename T, int PM>
+static GsKernel<T> pick(int ninp, bool res) {
+    if (res && ninp == 4) return yt_gs_kernel<T, PM, 4, true>;
+    if (res && ninp == 6) return yt_gs_kernel<T, PM, 6, true>;
+    return yt_gs_kernel<T, PM, YT_MAXK, false>;
 }
 
 template <typename T>
 static int launch(const void* chi, const void* s, const void* f, void* out,
-                  void* flag, void* scratch, void* chg, int P, int n1, int n2,
-                  int n3, int backward, int ncross, const int* cross,
-                  int ninp, const int* inp, void* stream) {
+                  void* flag, void* xbuf, void* chg, void* counts, int P,
+                  int n1, int n2, int n3, int backward, int ncross,
+                  const int* cross, int ninp, const int* inp, int h, int TY,
+                  int TZ, int res, int smem, void* stream) {
     GsDisp g;
-    if (ncross < 0 || ninp < 0 || ncross + ninp > YT_MAXK)
+    if (ncross < 0 || ninp < 0 || ncross + ninp > YT_MAXK || h < 0
+        || TY < 1 || TZ < 1)
         return (int)cudaErrorInvalidValue;
     g.ncross = ncross;
     for (int c = 0; c < ncross; ++c) {
@@ -172,9 +403,30 @@ static int launch(const void* chi, const void* s, const void* f, void* out,
         g.ki[c] = inp[3 * c];
         g.di[c][0] = inp[3 * c + 1];
         g.di[c][1] = inp[3 * c + 2];
+        if (abs(g.di[c][0]) > h || abs(g.di[c][1]) > h)
+            return (int)cudaErrorInvalidValue;   // halo narrower than |d|
     }
-    const int64_t M = (int64_t)P * n2 * n3;
-    if (M == 0 || n1 == 0) return 0;
+    if ((int64_t)P * n2 * n3 == 0 || n1 == 0) return 0;
+
+    // the wrapper's plan (ops/yt_pass.py::gs_plan) chose the tile, whether
+    // its points stay in registers and the shared memory; this only checks
+    // the plan against the kernel's layout. T: in-plane chi and base
+    // (unless in registers), two Jacobi buffers; int: the tile's tables
+    const int64_t W = (int64_t)(TY + 2 * h) * (TZ + 2 * h);
+    const int64_t A = (int64_t)TY * TZ;
+    if (res && (A > YT_GS_THREADS || (ninp != 4 && ninp != 6)))
+        return (int)cudaErrorInvalidValue;
+    const int64_t AS = res ? 0 : A;
+    const int64_t need = sizeof(T) * (ninp * AS + P * AS + 2 * P * W)
+                         + sizeof(int) * 2 * W;
+    if (smem < need) return (int)cudaErrorInvalidValue;
+    const int blocks = ((n2 + TY - 1) / TY) * ((n3 + TZ - 1) / TZ);
+    // two register widths keep the build short: the charges' P = 2 and
+    // labels' chunks of up to 8
+    GsKernel<T> kernel = P <= 2   ? pick<T, 2>(ninp, res)
+                         : P <= 8 ? pick<T, 8>(ninp, res)
+                                  : nullptr;
+    if (!kernel) return (int)cudaErrorInvalidValue;  // P > 8: chunked above
 
     int dev = 0, nsm = 0, coop = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
@@ -184,50 +436,74 @@ static int launch(const void* chi, const void* s, const void* f, void* out,
         e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e != cudaSuccess) return (int)e;
     if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
-    const int threads = 256;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, yt_gs_kernel<T>, threads, 0);
+    // above 48 KB only after opting in, and before the occupancy query so
+    // that the co-residency bound counts the real shared memory
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
     if (e != cudaSuccess) return (int)e;
-    int64_t blocks = (int64_t)per_sm * nsm;
-    const int64_t need = (M + threads - 1) / threads;
-    if (blocks > need) blocks = need;
-    if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, YT_GS_THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    // a grid larger than what is co-resident would deadlock at the barrier
+    if ((int64_t)per_sm * nsm < blocks)
+        return (int)cudaErrorCooperativeLaunchTooLarge;
 
     const T* chi_ = (const T*)chi;
     const T* s_ = (const T*)s;
     const T* f_ = (const T*)f;
     T* out_ = (T*)out;
     int* flag_ = (int*)flag;
-    T* base_ = (T*)scratch;
-    T* buf0_ = base_ + M;
-    T* buf1_ = buf0_ + M;
+    T* xb0_ = (T*)xbuf;
+    T* xb1_ = xb0_ + (int64_t)P * n2 * n3;
     int* chg_ = (int*)chg;
-    void* args[] = {&chi_, &s_, &f_, &out_, &flag_, &base_, &buf0_, &buf1_,
-                    &chg_, &P, &n1, &n2, &n3, &backward, &g};
-    e = cudaLaunchCooperativeKernel((const void*)yt_gs_kernel<T>,
-                                    dim3((unsigned)blocks), dim3(threads),
-                                    args, 0, (cudaStream_t)stream);
+    long long* counts_ = (long long*)counts;
+    void* args[] = {&chi_, &s_, &f_, &out_, &flag_, &xb0_, &xb1_, &chg_,
+                    &counts_, &P, &n1, &n2, &n3, &backward, &h, &TY, &TZ,
+                    &g};
+    e = cudaLaunchCooperativeKernel((const void*)kernel,
+                                    dim3((unsigned)blocks),
+                                    dim3(YT_GS_THREADS), args,
+                                    (size_t)smem,
+                                    (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 
-// cross: ncross x (k, d0, d1, d2); inp: ninp x (k, d1, d2), both in the
-// summation order. scratch: 3 * P * n2 * n3 elements of T; chg: 3 int32
-// zeros; flag: 1 int32, OR-ed (the caller zeroes it).
-extern "C" int yt_gs_pass_f32(const void* chi, const void* s, const void* f,
-                              void* out, void* flag, void* scratch, void* chg,
-                              int P, int n1, int n2, int n3, int backward,
-                              int ncross, const int* cross, int ninp,
-                              const int* inp, void* stream) {
-    return launch<float>(chi, s, f, out, flag, scratch, chg, P, n1, n2, n3,
-                         backward, ncross, cross, ninp, inp, stream);
+// The limits for the wrapper's tile plan: out[0] SMs, out[1] the shared
+// memory a block may opt in to, out[2] cooperative launch support, out[3]
+// threads per block.
+extern "C" int yt_gs_limits(int* out) {
+    int dev = 0;
+    out[3] = YT_GS_THREADS;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(
+            out + 1, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(out + 2, cudaDevAttrCooperativeLaunch,
+                                   dev);
+    return (int)e;
 }
 
-extern "C" int yt_gs_pass_f64(const void* chi, const void* s, const void* f,
-                              void* out, void* flag, void* scratch, void* chg,
-                              int P, int n1, int n2, int n3, int backward,
-                              int ncross, const int* cross, int ninp,
-                              const int* inp, void* stream) {
-    return launch<double>(chi, s, f, out, flag, scratch, chg, P, n1, n2, n3,
-                          backward, ncross, cross, ninp, inp, stream);
-}
+// cross: ncross x (k, d0, d1, d2); inp: ninp x (k, d1, d2), both in the
+// summation order; h >= every in-plane |d1|, |d2|; (TY, TZ) the tile; res:
+// a tile point's state stays in registers (at most one point per thread,
+// ninp 4 or 6); smem: dynamic shared memory bytes, at least the layout's.
+// xbuf: 2 * P * n2 * n3 elements of T; chg: 3 int32 zeros; flag: 1 int32,
+// OR-ed (the caller zeroes it); counts: 2 int64, accumulated; P <= 8.
+#define YT_GS_ENTRY(NAME, T)                                                 \
+    extern "C" int NAME(const void* chi, const void* s, const void* f,       \
+                        void* out, void* flag, void* xbuf, void* chg,        \
+                        void* counts, int P, int n1, int n2, int n3,         \
+                        int backward, int ncross, const int* cross,          \
+                        int ninp, const int* inp, int h, int TY, int TZ,     \
+                        int res, int smem, void* stream) {                   \
+        return launch<T>(chi, s, f, out, flag, xbuf, chg, counts, P, n1, n2, \
+                         n3, backward, ncross, cross, ninp, inp, h, TY, TZ,  \
+                         res, smem, stream);                                 \
+    }
+YT_GS_ENTRY(yt_gs_pass_f32, float)
+YT_GS_ENTRY(yt_gs_pass_f64, double)

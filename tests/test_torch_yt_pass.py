@@ -5,6 +5,9 @@ kernels are held against those by chip_smoke.py on the card). The JAX side
 is the XLA path the JAX package itself runs off-TPU: `f3 + _apply_R` for
 one pass, `_xla_sweep` for the fixpoint.
 """
+import os
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -148,3 +151,182 @@ def test_wrappers_reject_mismatched_input():
     with pytest.raises(ValueError):
         ops._check("yt_pass", op, torch.as_tensor(f3),
                    torch.as_tensor(f3), offs)     # CPU tensors
+
+
+# ----------------------------------------------------------------------
+# the schedule the yt_gs_pass kernel relies on
+# ----------------------------------------------------------------------
+def _kernel_define(name):
+    src = os.path.join(os.path.dirname(ops.__file__), os.pardir, "csrc",
+                       "yt_gs_pass.cu")
+    with open(src) as fh:
+        return int(re.search(rf"#define {name} (\d+)", fh.read()).group(1))
+
+
+# the kernel's cap on a tile's local iterations in one round
+LOCAL_CAP = _kernel_define("YT_GS_LOCAL_CAP")
+
+
+def _tile_round_sweep(chiP, s, f3, offs, adjoint, backward, tile,
+                      cap=LOCAL_CAP):
+    """One sweep by the CUDA kernel's schedule, emulated on the CPU.
+
+    Each plane's in-plane system is solved by rounds of block-Jacobi over
+    (ty, tz) tiles (ragged at the far edges): in a round every tile
+    iterates by Jacobi with its halo (the neighbours' values at the round's
+    start, wrapped periodically) held fixed until it is stationary or has
+    taken `cap` iterations; the rounds end when every tile is stationary
+    and no point within h of a tile's edge changed. All tiles iterate
+    together: a stationary tile's Jacobi step is a no-op. Returns (out,
+    flag, rounds per plane in sweep order)."""
+    P, n1, n2, n3 = s.shape
+    cross, inplane = ops._gs_split(offs, adjoint)
+    h = ops.gs_halo(offs, adjoint)
+    ty, tz = tile
+    y = torch.arange(n2)[:, None]
+    z = torch.arange(n3)[None, :]
+    ny = torch.clamp(n2 - y // ty * ty, max=ty)    # rows of y's tile
+    nz = torch.clamp(n3 - z // tz * tz, max=tz)
+    edge = ((y % ty < h) | (y % ty >= ny - h) | (z % tz < h)
+            | (z % tz >= nz - h))
+    # where x's neighbour x + d is read from: [u, u at the round's start]
+    # flattened; the current u when x + d lies in x's own tile without
+    # wrapping, else the frozen halo
+    nbmap = []
+    for _, d in inplane:
+        yy, zz = y + d[1], z + d[2]
+        inside = ((yy // ty == y // ty) & (yy >= 0) & (yy < n2)
+                  & (zz // tz == z // tz) & (zz >= 0) & (zz < n3))
+        flat = (yy % n2) * n3 + zz % n3
+        nbmap.append((flat + torch.where(inside, 0, n2 * n3)).reshape(-1))
+    nbmap = torch.stack(nbmap) if inplane else None
+    out = torch.empty_like(s)
+    changed = False
+    rounds = []
+    for i in (range(n1 - 1, -1, -1) if backward else range(n1)):
+        base = f3[:, i]
+        for k, d in cross:
+            ii = i + d[0]
+            swept = d[0] > 0 if backward else d[0] < 0
+            src = out if (swept and 0 <= ii < n1) else s
+            base = base + chiP[k, i] * ops._roll(src[:, ii % n1], d[1:],
+                                                 (1, 2))
+        u = s[:, i] if inplane else base
+        nround = 0
+        while True:
+            start = u.reshape(P, -1)
+            eany = False
+            for it in range(1, cap + 1 if inplane else 0):
+                nb = torch.cat([u.reshape(P, -1), start], 1)[:, nbmap]
+                un = base
+                for c, (k, _) in enumerate(inplane):
+                    un = un + chiP[k, i] * nb[:, c].reshape(P, n2, n3)
+                diff = un != u
+                eany |= bool((diff & edge).any())
+                if not diff.any():
+                    break
+                u = un
+                eany |= it == cap           # a tile is not stationary yet
+            nround += 1
+            if not eany:
+                break
+        rounds.append(nround)
+        out[:, i] = u
+        changed |= bool((u != s[:, i]).any())
+    return out, int(changed), rounds
+
+
+def _case_input(lattice, P, dtype, adjoint):
+    offs, chi, f3 = _flux(lattice)
+    rng = np.random.default_rng(P)
+    tdt = getattr(torch, dtype)
+    f = torch.as_tensor(np.concatenate([f3, rng.random((P,) + SHAPE)])[:P],
+                        dtype=tdt)
+    return offs, _operand(chi, offs, adjoint, tdt), f
+
+
+@pytest.mark.parametrize("lattice", list(CELLS))
+@pytest.mark.parametrize("adjoint", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+# (3, 4) divides the (9, 8) plane, (4, 3) leaves ragged tiles on both axes,
+# (9, 8) is one tile whose halo wraps onto itself; a cap of 2 local
+# iterations a round stands for the kernel's cap on planes whose chains are
+# longer than it
+@pytest.mark.parametrize("P, tile, cap", [
+    (1, (4, 3), LOCAL_CAP), (2, (3, 4), LOCAL_CAP),
+    (8, (4, 3), 2), (2, (9, 8), 2)])
+def test_tile_rounds_reach_the_plain_sweeps_bitwise(lattice, adjoint, dtype,
+                                                    P, tile, cap):
+    offs, op, f = _case_input(lattice, P, dtype, adjoint)
+    s_t = s_p = f
+    for sweep in range(3):
+        backward = sweep % 2 == 1
+        s_t, flag_t, rounds = _tile_round_sweep(op, s_t, f, offs, adjoint,
+                                                backward, tile, cap)
+        s_p, flag_p = ops.yt_gs_pass_plain(op, s_p, f, offs=offs,
+                                           adjoint=adjoint,
+                                           backward=backward)
+        assert torch.equal(s_t, s_p), f"sweep {sweep}"
+        assert flag_t == int(flag_p), f"sweep {sweep}"
+        jacobi = ops.gs_counts()["jacobi_iters"]
+        assert all(r <= j for r, j in zip(rounds, jacobi)), (rounds, jacobi)
+        if sweep == 0:
+            assert flag_t == 1 and max(jacobi) > 2
+
+
+def test_gs_counts_of_the_plain_version():
+    offs, op, f = _case_input("cubic", 2, "float64", True)
+    ops.yt_gs_pass_plain(op, f, f, offs=offs)
+    c = ops.gs_counts()
+    assert len(c["jacobi_iters"]) == SHAPE[0]
+    assert min(c["jacobi_iters"]) >= 1
+    assert c["old_grid_barriers"] == sum(c["jacobi_iters"]) + SHAPE[0]
+
+
+@pytest.mark.parametrize("lattice", list(CELLS))
+def test_gs_halo_covers_the_in_plane_neighbours(lattice):
+    offs, _, _ = _flux(lattice)
+    for adjoint in (True, False):
+        _, inplane = ops._gs_split(offs, adjoint)
+        assert len(inplane) == (4 if lattice == "cubic" else 6)
+        assert ops.gs_halo(offs, adjoint) == 1
+
+
+H100 = dict(nsm=132, smem_max=232448,
+            threads=_kernel_define("YT_GS_THREADS"))
+
+
+@pytest.mark.parametrize("P, n2, n3, ninp, itemsize", [
+    (2, 256, 256, 4, 4),      # the 256^3 slice's f32 sweeps
+    (8, 256, 256, 6, 8),      # labels' chunk of 8 basins, f64, K = 14
+    (2, 48, 48, 6, 4),
+    (8, 50, 37, 4, 8),        # ragged on both axes
+    (8, 512, 512, 6, 4),      # the integrands go in chunks
+    (1, 9, 8, 4, 8),
+    (12, 64, 64, 4, 4)])      # more integrands than one launch holds
+def test_gs_plan_fits_the_card(P, n2, n3, ninp, itemsize):
+    plan = ops.gs_plan(P, n2, n3, 1, ninp, itemsize, **H100)
+    ty, tz = plan["ty"], plan["tz"]
+    gy, gz = -(-n2 // ty), -(-n3 // tz)
+    assert plan["tiles"] == gy * gz <= H100["nsm"]
+    # every tile holds at least one point: the grid covers the plane
+    assert (gy - 1) * ty < n2 <= gy * ty and (gz - 1) * tz < n3 <= gz * tz
+    assert 1 <= plan["pc"] <= min(P, ops.GS_MAXP)
+    # points in registers only where a block has a thread for each
+    assert plan["res"] == (ty * tz <= H100["threads"] and ninp in (4, 6))
+    held = 0 if plan["res"] else ty * tz
+    assert plan["smem"] == itemsize * (
+        ninp * held + plan["pc"] * (held + 2 * (ty + 2) * (tz + 2))
+    ) + 8 * (ty + 2) * (tz + 2)
+    assert plan["smem"] <= H100["smem_max"]
+    if P * n2 * n3 >= 2 * 256 * 256:
+        assert plan["tiles"] >= 120        # the card is filled
+    if (n2, n3) == (256, 256) and itemsize == 4:
+        assert (ty, tz, plan["pc"]) == (16, 32, P)
+    if (P, n2) in ((8, 512), (12, 64)):
+        assert plan["pc"] < P              # launched in chunks
+
+
+def test_gs_plan_raises_at_the_shared_memory_limit():
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.gs_plan(1, 1024, 1024, 1, 6, 8, **H100)
