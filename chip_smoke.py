@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port of critic2-tpu on one GPU and check it.
 
     python3 chip_smoke.py            # full run: NaCl analogue at 256^3
-    python3 chip_smoke.py --profile  # also: where one intgrid's time goes
+    python3 chip_smoke.py --profile  # also: where the time of one intgrid,
+                                     # one autocp and one nciplot goes
 
 Phases (any failure exits non-zero; no phase catches its own failure):
   1. the card's name and power limit (nvidia-smi);
@@ -30,6 +31,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      plain version's in-plane iterations), and the time, grid barriers
      and block 0's local iterations of each of the 16 sweeps of one
      adjoint solve;
+  6. the grid main path on the same 256^3 grid field (no CUDA kernel of
+     the port lies on it; plain PyTorch ops on the card):
+     interpolation - interp_soa against interp_soa_rows at 131,072
+     scattered points and against interp_grid_soa on a 63x62x61 output
+     grid with a non-zero origin (1e-10 relative, f64), node values
+     reproduced exactly, a 4,096-point subsample against the CPU (1e-12),
+     evals/s of each route in f32 and f64;
+     autocp - the default run (WS seeds, depth 1) and the heavy run
+     (depth 2): Poincare-Hopf sum 0, |grad| < 1e-10 at every accepted CP,
+     the default run's CP list against the same call on the CPU (counts,
+     types, multiplicities, positions within 1e-9 bohr up to a symmetry
+     image), walls of the whole call, of Newton and of the host part;
+     nciplot - 256^3 in f32 and f64 (f32 within the JAX package's own
+     f32 bounds of f64, ndat > 0, finite cubes), and at 255x253x251 in f64
+     the fast path against the generic chunked route;
 then one JSON line of kernel records and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -44,6 +60,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 N_SLICE = 256                  # the yt256 leg of tools/parity_bench.py
 N_KERNEL = 48                  # grid of the kernel-against-plain phase
+# NCI box for fast path against generic route: every axis odd, so no
+# output plane but index 0 lies on a node plane of the 256 grid (254 would
+# share the plane at 1/2)
+NSTEP_ODD = (255, 253, 251)
 REPLACES = {"yt_pass": "critic2_tpu/ops/yt_pass.py:126",
             "yt_gs_pass": "critic2_tpu/ops/yt_pass.py:292"}
 SOURCE = {"yt_pass": "critic2_tpu_torch/csrc/yt_pass.cu",
@@ -433,9 +453,6 @@ def profile_phase(sl):
     """Where the time of one intgrid goes: host-clocked stages, then the
     device time by kernel from torch.profiler and the device idle share."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from critic2_tpu_torch.analysis.integration import intgrid
     from critic2_tpu_torch.analysis.yt import yt_integrate
 
@@ -458,10 +475,21 @@ def profile_phase(sl):
     for k, v in stages.items():
         log(f"stage {k}: {v * 1e3:.3f} ms")
 
+    device_profile(lambda: intgrid(s, method="yt"), "intgrid")
+
+
+def device_profile(fn, label):
+    """Run fn() under torch.profiler: wall, device busy time, device idle
+    share and the ten kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
-        intgrid(s, method="yt")
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel and memcpy records only: an operator's own record repeats
@@ -470,8 +498,9 @@ def profile_phase(sl):
           if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in ev) / 1e3
     wall_ms = wall * 1e3
-    log(f"profiled intgrid: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.4f}")
+    log(f"profiled {label}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms in {sum(e.count for e in ev)} kernels and "
+        f"copies, device idle share {1 - busy_ms / wall_ms:.4f}")
     check(busy_ms <= wall_ms, f"device busy {busy_ms:.3f} ms exceeds the "
           f"wall {wall_ms:.3f} ms: device time is counted twice")
     for e in sorted(ev, key=lambda e: e.self_device_time_total,
@@ -481,10 +510,311 @@ def profile_phase(sl):
                 f"x{e.count:<5d} {e.key[:70]}")
 
 
+def wall_s(fn):
+    """(result, host-clock seconds) of fn(), the device drained before and
+    after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def interp_phase(g):
+    """Phase 6a: the three tricubic routes against each other, against
+    the CPU, and their rates on the 256^3 grid g (f64, on the card)."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.ops import interp
+
+    npts = 131072
+    rng = np.random.default_rng(11)
+    pts = torch.as_tensor(rng.random((3, npts)), device=g.device)
+    soa = interp.interp_soa(g, pts)
+    rows = interp.interp_soa_rows(g, pts)
+    names = ("value", "gradient", "Hessian")
+    for nm, a, b in zip(names, rows, soa):
+        e = rel_err(a, b)
+        check(e <= 1e-10, f"interp_soa_rows vs interp_soa, {nm}: {e:.3e}")
+    log("interp: interp_soa_rows vs interp_soa at 131072 points, rel err "
+        + ", ".join(f"{nm} {rel_err(a, b):.3e}"
+                    for nm, a, b in zip(names, rows, soa)))
+    del rows
+
+    # a regular output grid that shares no node with the input
+    nout, origin = (63, 62, 61), (0.0113, 0.0271, 0.0057)
+    gy = interp.interp_grid_soa(g, nout, origin=origin)
+    ax = [origin[a] + torch.arange(nout[a], device=g.device,
+                                   dtype=torch.float64) / nout[a]
+          for a in range(3)]
+    xg = torch.stack(torch.meshgrid(*ax, indexing="ij")).reshape(3, -1)
+    off = xg * g.shape[0]
+    check(bool((off - off.round()).abs().min() > 1e-6),
+          "an output node sits on an input node")
+    sc = interp.interp_soa(g, xg)
+    for nm, a, b in zip(names, gy, sc):
+        e = rel_err(a.reshape(b.shape), b)
+        check(e <= 1e-10, f"interp_grid_soa vs interp_soa, {nm}: {e:.3e}")
+    log("interp: interp_grid_soa 63x62x61 vs interp_soa, rel err "
+        + ", ".join(f"{nm} {rel_err(a.reshape(b.shape), b):.3e}"
+                    for nm, a, b in zip(names, gy, sc)))
+    y0 = interp.interp_grid_soa(g, g.shape, nder=0)[0]
+    check(torch.equal(y0, g), "interp_grid_soa at nout = grid shape does "
+          "not reproduce the node values exactly")
+    del y0, gy, sc
+
+    # the card against the CPU on a subsample
+    sub = pts[:, :4096]
+    cpu = interp.interp_soa(g.cpu(), sub.cpu())
+    for nm, a, b in zip(names, interp.interp_soa(g, sub), cpu):
+        e = rel_err(a.cpu(), b)
+        check(e <= 1e-12, f"interp_soa card vs CPU, {nm}: {e:.3e}")
+    log("interp: interp_soa on the card vs device='cpu' at 4096 points: "
+        "within 1e-12 relative")
+
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        gd, tag = g.to(dt), str(dt)[6:]
+        for name, fn in (("interp_soa", interp.interp_soa),
+                         ("interp_soa_rows", interp.interp_soa_rows)):
+            ms = cuda_ms(lambda: fn(gd, pts, nder=2), 5)
+            out[f"{name}_{tag}_ms"] = ms
+            log(f"interp: {name} {tag}, 131072 points, value + gradient + "
+                f"Hessian: {ms:.4f} ms, {npts / ms / 1e3:.3f} M evals/s")
+        ms = cuda_ms(lambda: interp.interp_grid_soa(gd, gd.shape, nder=2), 2)
+        out[f"interp_grid_soa_{tag}_ms"] = ms
+        log(f"interp: interp_grid_soa {tag}, {N_SLICE}^3 whole-grid sweep, "
+            f"value + gradient + Hessian: {ms:.4f} ms, "
+            f"{g.numel() / ms / 1e3:.3f} M evals/s")
+        del gd
+    for tag in ("float32", "float64"):
+        check(out[f"interp_soa_{tag}_ms"] < out[f"interp_soa_rows_{tag}_ms"],
+              f"interp_soa_rows is the faster scattered route in {tag}: "
+              "fields/field.py must take it")
+    return out
+
+
+def timed_autocp(s, seeds):
+    """One autocp with the walls of its parts: (CP list, record). The
+    seed generator and the Newton search are wrapped for this call."""
+    import torch
+
+    from critic2_tpu_torch.analysis import autocp as auto
+
+    rec = {"seed_s": 0.0, "newton_s": 0.0, "generated": 0, "seeds": 0,
+           "converged": 0, "iterations": []}
+    gen, newton = auto.gen_seeds, auto.newton_batch
+
+    def gen_timed(*a, **kw):
+        out, dt = wall_s(lambda: gen(*a, **kw))
+        rec["seed_s"] += dt
+        rec["generated"] += len(out)
+        return out
+
+    def newton_timed(fn, x0, **kw):
+        (x, conv, nit), dt = wall_s(lambda: newton(fn, x0, **kw))
+        rec["newton_s"] += dt
+        rec["seeds"] += x0.shape[0]
+        rec["converged"] += int(conv.sum())
+        rec["iterations"].append(nit)
+        return x, conv, nit
+
+    auto.gen_seeds, auto.newton_batch = gen_timed, newton_timed
+    try:
+        cpl, rec["autocp_s"] = wall_s(lambda: auto.autocp(s, seeds=seeds))
+    finally:
+        auto.gen_seeds, auto.newton_batch = gen, newton
+    rec["host_s"] = rec["autocp_s"] - rec["seed_s"] - rec["newton_s"]
+    rec["counts"] = list(cpl.counts())
+    return cpl, rec
+
+
+def check_cplist(s, cpl, tag):
+    """Poincare-Hopf sum 0 and |grad| < 1e-10 at every accepted CP,
+    evaluated again at the stored positions."""
+    import numpy as np
+
+    check(cpl.poincare_hopf() == 0,
+          f"autocp {tag}: Poincare-Hopf sum {cpl.poincare_hopf()} "
+          f"(counts {cpl.counts()})")
+    found = np.array([cp.r for cp in cpl.cps if not cp.isnuc])
+    check(len(found) > 0, f"autocp {tag}: no critical point found")
+    gmax = float(s.ref.grd(found, nder=1).gfmod.max())
+    check(gmax < 1e-10, f"autocp {tag}: |grad| {gmax:.3e} at an accepted CP")
+    return gmax
+
+
+def autocp_phase(s):
+    """Phase 6b: AUTO on the grid field, default and heavy seeding."""
+    import numpy as np
+
+    from critic2_tpu_torch.analysis.autocp import Seed, autocp
+    from critic2_tpu_torch.convert import (cplist_to_arrays,
+                                           crystal_to_arrays,
+                                           system_from_arrays)
+
+    out = {}
+    lists = {}
+    for tag, seeds in (("default", None), ("heavy", [Seed("ws", depth=2)])):
+        _, first = timed_autocp(s, seeds)       # seed cache cold, first use
+        cpl, rec = timed_autocp(s, seeds)
+        rec["gfmod_max"] = check_cplist(s, cpl, tag)
+        rec["first_call_s"] = first["autocp_s"]
+        rec["seed_first_s"] = first["seed_s"]
+        out[tag] = rec
+        lists[tag] = cpl
+        log(f"autocp {tag}: {rec['generated']} seeds generated, "
+            f"{rec['seeds']} distinct into Newton, {rec['converged']} "
+            f"converged, counts (n, b, r, c) {tuple(rec['counts'])}, "
+            f"Poincare-Hopf 0, max |grad| {rec['gfmod_max']:.3e}, Newton "
+            f"iterations {rec['iterations']}; wall {rec['autocp_s']:.4f} s "
+            f"(first call {rec['first_call_s']:.4f} s, of it seed "
+            f"generation {rec['seed_first_s']:.4f} s): Newton "
+            f"{rec['newton_s']:.4f} s, seeds (cached) {rec['seed_s']:.4f} s, "
+            f"classification + host dedup {rec['host_s']:.4f} s")
+    check(out["default"]["seeds"] == 2071
+          and out["heavy"]["generated"] == 39312,
+          f"seed counts {out['default']['seeds']} distinct (default), "
+          f"{out['heavy']['generated']} generated (heavy)")
+
+    # the default run again with every tensor on the CPU
+    c = s.crystal
+    scpu = system_from_arrays(**crystal_to_arrays(c),
+                              grid=s.ref.grid.f.cpu().numpy(), device="cpu")
+    t0 = time.perf_counter()
+    ref = cplist_to_arrays(autocp(scpu))
+    t_cpu = time.perf_counter() - t0
+    got = cplist_to_arrays(lists["default"])
+    for key in ("typ", "mult", "isnuc"):
+        check(np.array_equal(got[key], ref[key]),
+              f"autocp card vs CPU: {key} {got[key]} vs {ref[key]}")
+    # which image of an orbit stands for it hangs on which seed arrives
+    # first: compare each CP with the nearest symmetry image of its twin
+    sg = c.spacegroup
+    dmax = 0.0
+    for xa, xb in zip(got["x"], ref["x"]):
+        imgs = (sg.rotations @ xb + sg.translations) % 1.0
+        dmax = max(dmax, float(c.distmat(xa, imgs).min()))
+    check(dmax <= 1e-9, f"autocp card vs CPU: positions differ by "
+          f"{dmax:.3e} bohr")
+    log(f"autocp default on the card vs device='cpu' ({t_cpu:.3f} s there): "
+        f"same types and multiplicities, {len(got['typ'])} CPs, positions "
+        f"within {dmax:.3e} bohr")
+    return out
+
+
+def nci_phase(s):
+    """Phase 6c: NCIPLOT on the grid field at 256^3, f32 and f64, and the
+    fast path against the generic route on an incommensurate box."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.analysis.nci import nciplot
+
+    n = N_SLICE
+    out = {}
+    res = {}
+    for prec in ("f32", "f64"):
+        _, t_first = wall_s(lambda: nciplot(s, nstep=(n, n, n),
+                                            precision=prec))
+        torch.cuda.reset_peak_memory_stats()
+        res[prec], t = wall_s(lambda: nciplot(s, nstep=(n, n, n),
+                                              precision=prec))
+        r = res[prec]
+        ndat = r.ndat
+        check(ndat > 0, f"nciplot {prec}: empty .dat selection")
+        for name in ("crho", "cgrad", "cgrad_raw"):
+            check(bool(torch.isfinite(getattr(r, name)).all()),
+                  f"nciplot {prec}: {name} not finite")
+        out[prec] = {"wall_s": t, "first_call_s": t_first, "ndat": ndat,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"nciplot {prec} {n}^3: wall {t:.4f} s (first call "
+            f"{t_first:.4f} s), ndat {ndat}, peak device memory "
+            f"{out[prec]['peak_gib']:.2f} GiB")
+
+    # f32 against f64, the bounds of the JAX package's own f32 test
+    r32, r64 = res["f32"], res["f64"]
+    dcr = (r32.crho.double() - r64.crho).abs()
+    mag = r64.crho.abs()
+    flip = dcr > 1.9 * mag - 1e-6
+    fl = float(flip.double().mean())
+    e_rho = float((dcr[~flip] / (mag[~flip] + 1e-3)).max())
+    m = (r32.cgrad < 99.0) & (r64.cgrad < 99.0)
+    e_rdg = float(((r32.cgrad.double()[m] - r64.cgrad[m]).abs()
+                   / (r64.cgrad[m] + 1e-3)).max())
+    log(f"nciplot f32 vs f64: sign flips {fl:.3e} of points, crho rel "
+        f"{e_rho:.3e} elsewhere, RDG rel {e_rdg:.3e} under the plot cut-off")
+    check(fl < 2e-3, f"nciplot f32: sign flips at {fl:.3e} of points")
+    check(e_rho < 1e-4, f"nciplot f32: crho rel {e_rho:.3e}")
+    check(e_rdg < 1e-3, f"nciplot f32: RDG rel {e_rdg:.3e}")
+    del res, r32, r64, dcr, mag, flip, m
+
+    # fast path against the generic chunked route, f64; usecore with an
+    # empty zpsp turns the fast path off and adds no core density
+    nstep = NSTEP_ODD
+    fast, t_fast = wall_s(lambda: nciplot(s, nstep=nstep, precision="f64"))
+    s.ref.usecore = True
+    try:
+        gen, t_gen = wall_s(lambda: nciplot(s, nstep=nstep, block=1 << 18))
+    finally:
+        s.ref.usecore = False
+    sel = torch.ones(nstep, dtype=torch.bool, device=fast.crho.device)
+    sel[0, 0, 0] = False                    # the node on the nucleus
+    for name, rtol, atol in (("crho", 1e-9, 1e-10),
+                             ("cgrad_raw", 1e-7, 1e-10)):
+        a, b = getattr(fast, name)[sel], getattr(gen, name)[sel]
+        bad = int(((a - b).abs() > atol + rtol * b.abs()).sum())
+        check(bad == 0, f"nciplot fast vs generic: {name} differs at {bad} "
+              f"points, max {float((a - b).abs().max()):.3e}")
+    log(f"nciplot {'x'.join(map(str, nstep))} f64: fast path {t_fast:.4f} s, generic "
+        f"chunked route {t_gen:.4f} s, crho and RDG agree (rtol 1e-9 / "
+        "1e-7)")
+    out["fast_255_s"], out["generic_255_s"] = t_fast, t_gen
+    return out
+
+
+def grid_phase(sl, profile):
+    """Phase 6: the grid main path on the slice phase's 256^3 field."""
+    import torch
+
+    from critic2_tpu_torch.analysis.autocp import Seed, autocp
+    from critic2_tpu_torch.analysis.nci import nciplot
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    s = sl["system"]
+    check(s.ref.type == "grid" and s.ref.grid.n == (N_SLICE,) * 3
+          and s.ref.grid.f.is_cuda, "the grid field is not on the card")
+    ops.reset_launches()
+    out = {"interp": interp_phase(s.ref.grid.f)}
+    torch.cuda.empty_cache()
+    out["autocp"] = autocp_phase(s)
+    out["nci"] = nci_phase(s)
+    log(f"grid path: CUDA kernel launches {dict(ops.launches)} (no kernel "
+        "of the port lies on this path)")
+    if profile:
+        a, nc = out["autocp"]["heavy"], out["nci"]["f32"]
+        sweep = out["interp"]["interp_grid_soa_float32_ms"]
+        log(f"stage autocp heavy: Newton {a['newton_s'] * 1e3:.3f} ms, "
+            f"seeds (cached) {a['seed_s'] * 1e3:.3f} ms, classification + "
+            f"host dedup {a['host_s'] * 1e3:.3f} ms")
+        log(f"stage nciplot f32: whole-grid sweep {sweep:.3f} ms, cast + "
+            f"elementwise tail {nc['wall_s'] * 1e3 - sweep:.3f} ms")
+        device_profile(lambda: autocp(s, seeds=[Seed("ws", depth=2)]),
+                       "autocp heavy")
+        n = N_SLICE
+        device_profile(lambda: nciplot(s, nstep=(n, n, n)), "nciplot f32")
+    log(json.dumps({"grid_path": out}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also break one intgrid down by stage and kernel")
+                    help="also break one intgrid, one autocp and one "
+                    "nciplot down by stage and kernel")
     args = ap.parse_args()
 
     import torch
@@ -523,6 +853,11 @@ def main() -> int:
     meas = main_shape_phase(sl)
     if args.profile:
         profile_phase(sl)
+    sl.pop("res"), sl.pop("f3")         # the YT phases' tensors: free them
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grid_phase(sl, args.profile)
+    log(f"grid path phase: {time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

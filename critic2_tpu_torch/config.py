@@ -17,6 +17,10 @@ import torch
 FDTYPE = torch.float64   # accumulation / host-parity tier
 EDTYPE = torch.float32   # throughput tier (opt-in)
 
+# cube writers: E22.14 body values (the reference `precisecube` default,
+# src/global@proc.f90:90) or the standard 1p,e12.5
+PRECISECUBE = True
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `device` if given, else cuda.

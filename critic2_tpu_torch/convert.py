@@ -1,7 +1,9 @@
 """Carry state across from the JAX package as plain numpy arrays.
 
-A structure travels as m_x2c (3,3), x_frac (ncel,3), species_of (ncel,)
-and species [(name, Z)]; a grid field as its (n1,n2,n3) array. From them
+A structure travels as m_x2c (3,3), x_frac (ncel,3), species_of (ncel,),
+species [(name, Z)] and, for a molecule, ismolecule / molx0 / molborder;
+a grid field as its (n1,n2,n3) array; a critical-point list as one array
+per attribute. From them
 the port builds its own Crystal, Field and System, so both packages
 compute on identical inputs. Nothing here imports the JAX package: the
 caller reads the arrays off its objects (``crystal_to_arrays`` works on
@@ -21,30 +23,61 @@ def crystal_to_arrays(crystal) -> dict:
     return {"m_x2c": np.array(crystal.m_x2c, dtype=float),
             "x_frac": np.array(crystal.x_frac, dtype=float),
             "species_of": np.array(crystal.species_of, dtype=int),
-            "species": [(str(s.name), int(s.z)) for s in crystal.species]}
+            "species": [(str(s.name), int(s.z)) for s in crystal.species],
+            "ismolecule": bool(crystal.ismolecule),
+            "molx0": (None if crystal.molx0 is None
+                      else np.array(crystal.molx0, dtype=float)),
+            "molborder": np.array(crystal.molborder, dtype=float)}
 
 
-def crystal_from_arrays(m_x2c, x_frac, species_of, species) -> Crystal:
+def crystal_from_arrays(m_x2c, x_frac, species_of, species,
+                        ismolecule: bool = False, molx0=None,
+                        molborder=(0.0, 0.0, 0.0)) -> Crystal:
     """The port's Crystal from the numpy form."""
     return Crystal(m_x2c=np.array(m_x2c, dtype=float),
                    x_frac=np.array(x_frac, dtype=float),
                    species_of=np.array(species_of, dtype=int),
-                   species=[Species(str(n), int(z)) for n, z in species])
+                   species=[Species(str(n), int(z)) for n, z in species],
+                   ismolecule=bool(ismolecule),
+                   molx0=None if molx0 is None else np.array(molx0,
+                                                             dtype=float),
+                   molborder=np.array(molborder, dtype=float))
 
 
 def system_from_arrays(m_x2c, x_frac, species_of, species, grid=None,
-                       name: str = "grid", device=None):
+                       name: str = "grid", device=None,
+                       interp: str | None = None, **molecule):
     """The port's System: promolecular field 0 and, when `grid` is given,
-    that grid as field 1 (the reference field), all on `device` (cuda by
-    default)."""
+    that grid as field 1 (the reference field) with interpolation mode
+    `interp` (the grid default when None), all on `device` (cuda by
+    default). `molecule` takes ismolecule / molx0 / molborder."""
     from .fields.field import Field
     from .fields.grid3 import Grid3
     from .system import System
 
-    c = crystal_from_arrays(m_x2c, x_frac, species_of, species)
+    c = crystal_from_arrays(m_x2c, x_frac, species_of, species, **molecule)
     s = System.from_structure(c, device=device)
     if grid is not None:
-        g = torch.tensor(np.asarray(grid), dtype=FDTYPE,
-                         device=resolve_device(device))
-        s.load_field(Field.from_grid(c, Grid3(g), name=name))
+        g = Grid3(torch.tensor(np.asarray(grid), dtype=FDTYPE,
+                               device=resolve_device(device)))
+        if interp is not None:
+            g.setmode(interp)
+        s.load_field(Field.from_grid(c, g, name=name))
     return s
+
+
+def cplist_to_arrays(cpl) -> dict:
+    """The numpy form of a critical-point list of either package: one
+    array per CP attribute, in list order."""
+    cps = cpl.cps
+    return {"typ": np.array([cp.typ for cp in cps], dtype=int),
+            "x": np.array([cp.x for cp in cps], dtype=float).reshape(-1, 3),
+            "r": np.array([cp.r for cp in cps], dtype=float).reshape(-1, 3),
+            "f": np.array([cp.f for cp in cps], dtype=float),
+            "gfmod": np.array([cp.gfmod for cp in cps], dtype=float),
+            "del2f": np.array([cp.del2f for cp in cps], dtype=float),
+            "eig": np.array([np.asarray(cp.eig) for cp in cps],
+                            dtype=float).reshape(-1, 3),
+            "mult": np.array([cp.mult for cp in cps], dtype=int),
+            "isnuc": np.array([cp.isnuc for cp in cps], dtype=bool),
+            "name": np.array([cp.name for cp in cps], dtype=str)}

@@ -5,8 +5,8 @@ coordinate frames (input-crystallographic / Delaunay-reduced / Cartesian),
 atom lists, Wigner-Seitz cell, shortest-vector searches and the
 periodic-image environment that feeds promolecular evaluation.
 
-Host code (NumPy), a copy of what the slice needs from the JAX package's
-crystal module. Symmetry, space-group naming and Wyckoff letters are not
+Host code (NumPy), a copy of what the ported analyses need from the JAX
+package's crystal module. Space-group naming and Wyckoff letters are not
 ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ from dataclasses import dataclass, field as dfield
 
 import numpy as np
 
+from .. import param
 from . import cell as cellmod
 from .wscell import WignerSeitz, reduced_basis, wigner_seitz
 
@@ -52,6 +53,7 @@ class Crystal:
         self.aa, self.bb = cellmod.cellpar_from_m_x2c(self.m_x2c)
         self._ws = None
         self._mxr = None
+        self._sg = None
 
     @property
     def ncel(self) -> int:
@@ -115,21 +117,85 @@ class Crystal:
         d = self.shortest_vector(np.asarray(x1_frac) - np.asarray(x2_frac))
         return np.linalg.norm(d, axis=-1)
 
+    def distmat(self, x1_frac, x2_frac, cutoff: float | None = None):
+        """Minimum-image distance matrix (n, m) between two fractional
+        coordinate sets (n,3) and (m,3) - the vectorized form of
+        `distance` used by batch CP dedup.
+
+        With `cutoff` set, uses a wrap-only fast path (no neighbor-cell
+        expansion): exact for distances below half the shortest
+        reduced-lattice vector, possible overestimates beyond - correct
+        for threshold tests `d < cutoff` with small cutoffs."""
+        X = np.atleast_2d(np.asarray(x1_frac, dtype=float))
+        Y = np.atleast_2d(np.asarray(x2_frac, dtype=float))
+        dx = (X[:, None, :] - Y[None, :, :]).reshape(-1, 3)
+        if cutoff is not None and not self.ismolecule:
+            xr = dx @ self.m_x2xr.T
+            xr -= np.round(xr)
+            d = np.linalg.norm(xr @ self.m_xr2c.T, axis=1)
+            return d.reshape(len(X), len(Y))
+        sv = np.atleast_2d(self.shortest_vector(dx))
+        return np.linalg.norm(sv, axis=1).reshape(len(X), len(Y))
+
+    def identify_atom(self, x, icrd=param.ICRD_CRYS, distmax=1e-5):
+        """Index (0-based) of the cell atom within distmax of point x, or -1.
+
+        Role of reference identify_atom (src/crystalmod@proc.f90).
+        """
+        x = np.asarray(x, dtype=float)
+        single = x.ndim == 1
+        x = np.atleast_2d(x)
+        if icrd == param.ICRD_CART:
+            x = self.c2x(x)
+        if self.ncel == 0:
+            res = np.full(len(x), -1)
+            return (int(res[0]), np.inf) if single else res
+        d = np.stack(
+            [self.distance(x, self.x_frac[i][None, :].repeat(len(x), 0))
+             for i in range(self.ncel)], axis=1
+        )
+        nid = np.argmin(d, axis=1)
+        dmin = d[np.arange(len(x)), nid]
+        nid = np.where(dmin <= distmax, nid, -1)
+        if single:
+            return int(nid[0]), float(dmin[0])
+        return nid, dmin
+
     # ------------------------------------------------------------------
-    # symmetry: not ported yet
+    # symmetry
     # ------------------------------------------------------------------
     @property
     def spacegroup(self):
-        raise NotImplementedError("symmetry is not ported to the torch "
-                                  "package yet")
+        """Lazy space-group symmetry dataset (crystal/symmetry.py).
+        Honors `nosym` (P1, reference NOSYMM) and `symprec` attributes
+        (reference SYMPREC keyword, src/global.f90)."""
+        if self._sg is None:
+            from .symmetry import SpaceGroup, find_symmetry
+
+            if getattr(self, "nosym", False):
+                nat = self.ncel
+                sg = SpaceGroup(rotations=np.eye(3, dtype=int)[None],
+                                translations=np.zeros((1, 3)),
+                                crystal_system="triclinic")
+                sg.nneq = nat
+                sg.irr_idx = np.arange(nat)
+                sg.orbit_of = np.arange(nat)
+                sg.mult = np.ones(nat, dtype=int)
+                self._sg = sg
+            else:
+                self._sg = find_symmetry(
+                    self, symprec=getattr(self, "symprec", 1e-5))
+        return self._sg
 
     def spg_name(self):
-        raise NotImplementedError("space-group naming is not ported to the "
-                                  "torch package yet")
+        raise NotImplementedError(
+            "space-group naming waits for crystal/spgs.py, which is not "
+            "ported to the torch package yet")
 
     def wyckoffs(self, symprec: float = 1e-4):
-        raise NotImplementedError("Wyckoff letters are not ported to the "
-                                  "torch package yet")
+        raise NotImplementedError(
+            "Wyckoff letters wait for crystal/wyckoff.py, which is not "
+            "ported to the torch package yet")
 
     @property
     def ws(self) -> WignerSeitz:

@@ -1,14 +1,18 @@
-"""Scalar field: a crystal plus one evaluation backend.
+"""Polymorphic scalar field with batched evaluation.
 
-Role of the reference fieldmod (src/fieldmod.f90). The port carries the
-grid and promolecular types; ``eval_fn`` is the batched SoA evaluator
-that rasterization uses. Per batch (mirrors the reference):
+Role of the reference fieldmod (src/fieldmod.f90): a field is a crystal
+plus one evaluation backend, evaluated through a single dispatch `grd`
+that returns value, gradient, Hessian and derived scalars for a whole
+batch of points (reference grd, src/fieldmod@proc.f90:613-845). The port
+carries the grid and promolecular types; the others (wfn, wien, elk, pi,
+dftb, ghost) raise NotImplementedError.
+
+Pipeline per batch (mirrors the reference):
   1. Cartesian -> fractional, wrap to the main cell (periodic)
   2. backend evaluation (device)
-  3. optional core augmentation (promolecular core tables, zpsp)
-  4. nucleus clamp: zero the gradient on nuclei
-The other field types (wfn, wien, elk, pi, dftb, ghost) are not ported
-yet and raise NotImplementedError; grid interpolation is not ported yet.
+  3. rotate grid-frame derivatives to Cartesian (m_c2x^T sandwiches)
+  4. optional core augmentation (promolecular core tables, zpsp)
+  5. nucleus clamp: zero the gradient on nuclei
 """
 from __future__ import annotations
 
@@ -17,25 +21,31 @@ from dataclasses import dataclass, field as dfield
 import numpy as np
 import torch
 
-from .grid3 import Grid3, detect_grid_format
+from ..config import FDTYPE
+from ..ops.eig3 import linmap, sym6_rotation
+from ..ops.interp import interp_soa
+from .grid3 import Grid3, check_mode_ported, detect_grid_format
 from .promol import PromolEnv, promolecular_soa
 
 
-def linmap(A, v):
-    """Apply a small host-constant matrix A (m, k) to batched rows v (k, ...)
-    as unrolled scalar multiply-adds, skipping zero entries."""
-    A = np.asarray(A)
-    rows = []
-    for i in range(A.shape[0]):
-        acc = None
-        for j in range(A.shape[1]):
-            a = float(A[i, j])
-            if a == 0.0:
-                continue
-            term = a * v[j]
-            acc = term if acc is None else acc + term
-        rows.append(acc if acc is not None else torch.zeros_like(v[0]))
-    return torch.stack(rows)
+@dataclass
+class ScalarBatch:
+    """Struct-of-arrays result of a batched field evaluation (role of the
+    reference scalar_value, src/types.f90:113-148)."""
+
+    f: torch.Tensor             # (N,) value (with core if usecore)
+    gf: torch.Tensor            # (N,3) gradient
+    hf: torch.Tensor            # (N,3,3) hessian
+    fval: torch.Tensor          # (N,) valence-only value
+    isnuc: torch.Tensor         # (N,) bool
+
+    @property
+    def gfmod(self):
+        return torch.sqrt((self.gf * self.gf).sum(-1))
+
+    @property
+    def del2f(self):
+        return self.hf[..., 0, 0] + self.hf[..., 1, 1] + self.hf[..., 2, 2]
 
 
 @dataclass
@@ -47,6 +57,7 @@ class Field:
     name: str = ""
     usecore: bool = False
     zpsp: dict = dfield(default_factory=dict)
+    typnuc: int = -3
     _coreenv: PromolEnv | None = None
     _evalfns: dict = dfield(default_factory=dict)
 
@@ -85,8 +96,10 @@ class Field:
             else self.promol.device
 
     # ------------------------------------------------------------------
-    def set_options(self, core: bool | None = None,
-                    zpsp: dict | None = None):
+    def set_options(self, interp: str | None = None,
+                    core: bool | None = None, zpsp: dict | None = None):
+        if interp is not None and self.grid is not None:
+            self.grid.setmode(interp)
         if zpsp is not None:
             self.zpsp = dict(zpsp)
         if core is not None:
@@ -105,43 +118,133 @@ class Field:
         return self._coreenv
 
     # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+    def _nucleus_images(self) -> np.ndarray | None:
+        """Cartesian nuclei (M, 3) a wrapped point can sit on: the cell's
+        atoms and, in a crystal, their 26 neighbouring images."""
+        c = self.crystal
+        if c.ncel == 0:
+            return None
+        at = np.asarray(c.x_cart)
+        if c.ismolecule:
+            return at
+        shifts = np.array([[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1)
+                           for k in (-1, 0, 1)], dtype=float)
+        return (at[None, :, :] + (shifts @ np.asarray(c.m_x2c).T)[:, None, :]
+                ).reshape(-1, 3)
+
+    def grd(self, points_cart, nder: int = 2,
+            periodic: bool = True) -> ScalarBatch:
+        """Batched field evaluation at Cartesian points (N, 3), on the
+        field's device."""
+        c = self.crystal
+        dev = self.device
+        v = torch.atleast_2d(torch.as_tensor(points_cart, dtype=FDTYPE,
+                                             device=dev))
+        m_c2x = torch.as_tensor(np.asarray(c.m_c2x), dtype=FDTYPE,
+                                device=dev)
+        m_x2c = torch.as_tensor(np.asarray(c.m_x2c), dtype=FDTYPE,
+                                device=dev)
+        wx = v @ m_c2x.T
+        if periodic:
+            wx = wx - torch.floor(wx)
+        wc = wx @ m_x2c.T
+
+        if self.type == "grid":
+            y, yp_frac, ypp_frac = self.grid.interp(wx, nder=nder)
+            m = m_c2x.to(y.dtype)
+            # rotate to Cartesian (reference :741-742): gf = c2x^T yp,
+            # hf = c2x^T ypp c2x
+            gf = yp_frac @ m
+            hf = torch.einsum("ki,nkl,lj->nij", m, ypp_frac, m)
+            f = y
+        elif self.type == "promol":
+            f, gf, hf = self.promol.eval(wc, nder=nder)
+        else:
+            raise NotImplementedError(
+                f"{self.type} fields are not ported to the torch package "
+                "yet")
+
+        fval = f
+        env = self.coreenv
+        if env is not None:
+            cf, cg, ch = env.eval(wc, nder=nder)
+            f = f + cf
+            gf = gf + cg
+            hf = hf + ch
+
+        # nucleus clamp (reference :836-838)
+        isnuc = self._near_nucleus(wc)
+        gf = torch.where(isnuc[:, None], torch.zeros_like(gf), gf)
+        return ScalarBatch(f=f, gf=gf, hf=hf, fval=fval, isnuc=isnuc)
+
+    def _near_nucleus(self, wc, eps: float = 1e-5):
+        """Mask of points within eps of a nucleus (periodic), on device;
+        points are wrapped to the main cell, so the immediate neighbour
+        images suffice."""
+        imgs = self._nucleus_images()
+        if imgs is None:
+            return torch.zeros(wc.shape[0], dtype=torch.bool,
+                               device=wc.device)
+        imgs = torch.as_tensor(imgs, dtype=wc.dtype, device=wc.device)
+        d2 = ((wc[:, None, :] - imgs[None, :, :]) ** 2).sum(-1)
+        return d2.min(dim=1).values < eps * eps
+
+    def grd0(self, points_cart, periodic: bool = True):
+        return self.grd(points_cart, nder=0, periodic=periodic).f
+
+    # ------------------------------------------------------------------
     def eval_fn(self, nder: int = 2, clamp_nuclei: bool = True):
-        """SoA closure xT (3, N) cart -> (f (N,), gf (3, N), h6 (6, N)),
-        cached per (nder, clamp_nuclei)."""
+        """SoA closure xT (3, N) cart -> (f (N,), gf (3, N), h6 (6, N))
+        over the field's device tensors - the evaluation core consumed by
+        the batched Newton search and NCIPLOT. Cached per
+        (nder, clamp_nuclei)."""
         key = (nder, clamp_nuclei)
         if key not in self._evalfns:
             self._evalfns[key] = self._build_eval_fn(nder, clamp_nuclei)
         return self._evalfns[key]
 
     def _build_eval_fn(self, nder: int, clamp_nuclei: bool):
-        if self.type != "promol":
+        if self.type not in ("grid", "promol"):
             raise NotImplementedError(
                 f"eval_fn for {self.type} fields is not ported to the torch "
                 "package yet")
         c = self.crystal
         m_c2x = np.asarray(c.m_c2x)
         m_x2c = np.asarray(c.m_x2c)
+        r6 = sym6_rotation(m_c2x)
+        ftype = self.type
         promol = self.promol
         env = self.coreenv
-        dev, dt = promol.atpos.device, promol.atpos.dtype
+        if ftype == "grid":
+            grid_f, grid_mode = self.grid.f, self.grid.mode
+            check_mode_ported(grid_mode)
+            dev, dt = grid_f.device, grid_f.dtype
+        else:
+            dev, dt = promol.atpos.device, promol.atpos.dtype
 
         imgsT = None
-        if clamp_nuclei and c.ncel > 0:
-            at = np.asarray(c.x_cart)
-            if not c.ismolecule:
-                shifts = np.array(
-                    [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1)
-                     for k in (-1, 0, 1)], dtype=float)
-                at = (at[None, :, :] + (shifts @ m_x2c.T)[:, None, :]
-                      ).reshape(-1, 3)
-            imgsT = torch.as_tensor(at.T, dtype=dt, device=dev)
+        imgs = self._nucleus_images() if clamp_nuclei else None
+        if imgs is not None:
+            imgsT = torch.as_tensor(imgs.T, dtype=dt, device=dev)
 
         def fn(xT):
             wx = linmap(m_c2x, xT)
             wx = wx - torch.floor(wx)
             wc = linmap(m_x2c, wx)
-            f, gf, h6 = promolecular_soa(wc, promol.atpos, promol.atspc,
-                                         promol.tab, nder=nder)
+            if ftype == "grid":
+                # scattered tricubic points take the 64-element stencil
+                # gather; ops.interp.interp_soa_rows computes the same
+                # numbers from whole-row gathers
+                y, yp, ypp6 = interp_soa(grid_f, wx, mode=grid_mode,
+                                         nder=nder)
+                f = y
+                gf = linmap(m_c2x.T, yp)
+                h6 = linmap(r6, ypp6)
+            else:
+                f, gf, h6 = promolecular_soa(wc, promol.atpos, promol.atspc,
+                                             promol.tab, nder=nder)
             if env is not None:
                 cf, cg, ch6 = promolecular_soa(wc, env.atpos, env.atspc,
                                                env.tab, nder=nder)

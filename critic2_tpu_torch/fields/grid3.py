@@ -1,9 +1,11 @@
 """3D periodic grid fields: the device tensor and the cube reader.
 
 Role of the reference grid3mod (src/grid3mod.f90): hold the (n1, n2, n3)
-scalar data over fractional coordinates. The port carries the Gaussian
-cube reader; the other file formats raise NotImplementedError, and
-interpolation and the FFT-derived grids are not ported yet.
+scalar data over fractional coordinates and interpolate value, gradient
+and Hessian at arbitrary points. The port carries the Gaussian cube
+reader and the nearest / trilinear / tricubic interpolants; the other
+file formats, the trispline / tristar modes and the FFT-derived grids
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -14,6 +16,10 @@ import numpy as np
 import torch
 
 from ..config import FDTYPE, resolve_device
+from ..ops.interp import interp_batch
+
+MODES = ("nearest", "trilinear", "tricubic", "trispline", "tristar")
+DEFAULT_MODE = "tricubic"  # reference mode_default (src/grid3mod.f90:88)
 
 
 def parse_cube_header(path: str):
@@ -46,6 +52,7 @@ def parse_cube_header(path: str):
 @dataclass
 class Grid3:
     f: torch.Tensor                     # (n1,n2,n3) device tensor
+    mode: str = DEFAULT_MODE
 
     @property
     def n(self):
@@ -54,6 +61,23 @@ class Grid3:
     @property
     def ntot(self):
         return int(np.prod(self.f.shape))
+
+    # ------------------------------------------------------------------
+    def setmode(self, mode: str):
+        if mode not in MODES:
+            raise ValueError(f"unknown interpolation mode {mode}")
+        self.mode = mode
+
+    def interp(self, xfrac, nder: int = 2):
+        """Batched interpolation at fractional points (N,3).
+
+        Returns (y, yp, ypp) with derivatives w.r.t. fractional coords
+        (scaled by n), reference convention (src/grid3mod@proc.f90:1043).
+        """
+        check_mode_ported(self.mode)
+        x = torch.as_tensor(xfrac, dtype=self.f.dtype, device=self.f.device)
+        return interp_batch(self.f, torch.atleast_2d(x), mode=self.mode,
+                            nder=nder)
 
     @classmethod
     def from_file(cls, path: str, fmt: str | None = None,
@@ -78,6 +102,13 @@ class Grid3:
         vals = data[: int(np.prod(n))].reshape(tuple(n))
         return cls(torch.as_tensor(vals, dtype=FDTYPE,
                                    device=resolve_device(device)))
+
+
+def check_mode_ported(mode: str):
+    if mode in ("trispline", "tristar"):
+        raise NotImplementedError(
+            f"interpolation mode {mode} waits for ops/trispline.py, which "
+            "is not ported to the torch package yet")
 
 
 def detect_grid_format(path: str) -> str:

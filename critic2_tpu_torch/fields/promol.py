@@ -16,9 +16,11 @@ import numpy as np
 import torch
 
 from ..config import FDTYPE, resolve_device
+from ..ops.interp import sym6_to_mat
 from .grid1 import RadialTableSet
 
-__all__ = ["promol_tables", "promolecular_soa", "PromolEnv"]
+__all__ = ["promol_tables", "promolecular_soa", "promolecular_batch",
+           "PromolEnv"]
 
 
 def _radial_interp(tab, s, r0, nder: int = 2):
@@ -135,6 +137,13 @@ def promolecular_soa(pointsT, atpos, atspc, tab, nder: int = 2):
     return f, fp, torch.stack([hxx, hyy, hzz, hxy, hxz, hyz])
 
 
+def promolecular_batch(points, atpos, atspc, tab, nder: int = 2):
+    """Batch-first wrapper over promolecular_soa: points (N, 3) ->
+    (f (N,), fp (N, 3), fpp (N, 3, 3))."""
+    f, fpT, fpp6 = promolecular_soa(points.T, atpos, atspc, tab, nder=nder)
+    return f, fpT.T, sym6_to_mat(fpp6)
+
+
 class PromolEnv:
     """Host-side wrapper: crystal -> candidate atom images + tables.
 
@@ -181,3 +190,17 @@ class PromolEnv:
     @property
     def device(self):
         return self.atpos.device
+
+    def eval(self, points_cart, nder: int = 2):
+        """Density, gradient (N, 3) and Hessian (N, 3, 3) at Cartesian
+        points (N, 3)."""
+        dt, dev = self.atpos.dtype, self.atpos.device
+        pts = torch.atleast_2d(torch.as_tensor(points_cart, dtype=dt,
+                                               device=dev))
+        if self.atpos.shape[0] == 0:
+            n = pts.shape[0]
+            return (torch.zeros((n,), dtype=dt, device=dev),
+                    torch.zeros((n, 3), dtype=dt, device=dev),
+                    torch.zeros((n, 3, 3), dtype=dt, device=dev))
+        return promolecular_batch(pts, self.atpos, self.atspc, self.tab,
+                                  nder=nder)

@@ -14,6 +14,12 @@ import numpy as np
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "critic2_tpu", "data")
 
+BOHR_TO_ANGSTROM = 0.529177210903
+
+# coordinate-system selectors (reference icrd_*, src/param.f90)
+ICRD_CART = 0
+ICRD_CRYS = 1
+
 ELEMENTS = [
     "X",
     "H", "He", "Li", "Be", "B", "C", "N", "O", "F", "Ne",

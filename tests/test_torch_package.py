@@ -11,8 +11,13 @@ import torch
 
 import critic2_tpu_torch
 from critic2_tpu_torch import System, config
+from critic2_tpu_torch.analysis.autocp import (Seed, autocp, gen_seeds,
+                                               makegraph)
+from critic2_tpu_torch.analysis.nci import nciplot
 from critic2_tpu_torch.analysis.yt import yt_integrate
-from critic2_tpu_torch.convert import crystal_from_arrays
+from critic2_tpu_torch.convert import (crystal_from_arrays,
+                                       crystal_to_arrays,
+                                       system_from_arrays)
 from critic2_tpu_torch.ops import _ext
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -21,7 +26,11 @@ FORBIDDEN = {"jax", "jaxlib", "critic2_tpu"}
 
 
 def _modules():
-    for dirpath, _, files in os.walk(PKG):
+    """The package's own modules; _build/ holds what a run builds there
+    (kernel libraries, at times a whole proof copy of the tree)."""
+    for dirpath, dirs, files in os.walk(PKG):
+        if "_build" in dirs:
+            dirs.remove("_build")
         for fn in files:
             if fn.endswith(".py"):
                 yield os.path.join(dirpath, fn)
@@ -40,7 +49,8 @@ def _imported_roots(path):
 
 def test_no_jax_or_jax_package_import_anywhere():
     mods = list(_modules())
-    assert len(mods) >= 15
+    assert len(mods) >= 24
+    assert not [p for p in mods if "_build" in p]
     bad = [(os.path.relpath(p, ROOT), r) for p in mods
            for r in _imported_roots(p) if r in FORBIDDEN]
     assert not bad, bad
@@ -51,10 +61,17 @@ def test_no_jax_or_jax_package_import_anywhere():
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys\n"
             "import critic2_tpu_torch\n"
+            "import critic2_tpu_torch.analysis.autocp\n"
             "import critic2_tpu_torch.analysis.integration\n"
+            "import critic2_tpu_torch.analysis.nci\n"
             "import critic2_tpu_torch.analysis.yt\n"
             "import critic2_tpu_torch.convert\n"
+            "import critic2_tpu_torch.crystal.symmetry\n"
             "import critic2_tpu_torch.fields.field\n"
+            "import critic2_tpu_torch.io.cube\n"
+            "import critic2_tpu_torch.ops.eig3\n"
+            "import critic2_tpu_torch.ops.interp\n"
+            "import critic2_tpu_torch.ops.newton\n"
             "import critic2_tpu_torch.ops.yt_pass\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib',"
@@ -85,6 +102,72 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         yt_integrate(_crystal(), np.ones((4, 4, 4)))
     assert config.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_build_directory_is_not_scanned(tmp_path, monkeypatch):
+    """A copy of the tree under _build/ (JAX package and all) does not
+    count as the port's code."""
+    fake = tmp_path / "pkg"
+    (fake / "_build" / "proof" / "critic2_tpu").mkdir(parents=True)
+    (fake / "_build" / "proof" / "critic2_tpu" / "x.py").write_text(
+        "import jax\n")
+    (fake / "ok.py").write_text("import torch\n")
+    monkeypatch.setattr(sys.modules[__name__], "PKG", str(fake))
+    assert [os.path.basename(p) for p in _modules()] == ["ok.py"]
+
+
+@pytest.mark.parametrize("entry", ["autocp", "nciplot", "grd"])
+def test_grid_entry_points_raise_without_cuda(monkeypatch, entry):
+    """With no device given, the grid main path wants CUDA and says so;
+    nothing drops to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    c = _crystal()
+    grid = np.ones((4, 4, 4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "autocp":
+            autocp(System(crystal=c))
+        elif entry == "nciplot":
+            nciplot(System(crystal=c))
+        else:
+            system_from_arrays(**crystal_to_arrays(c), grid=grid).ref.grd(
+                np.zeros((1, 3)))
+
+
+def _grid_system(mode=None):
+    s = system_from_arrays(**crystal_to_arrays(_crystal()),
+                           grid=np.random.default_rng(0).random((6, 6, 6)),
+                           device="cpu")
+    if mode:
+        s.ref.set_options(interp=mode)
+    return s
+
+
+@pytest.mark.parametrize("what, call", [
+    ("ops/trispline.py",
+     lambda: _grid_system("trispline").ref.grd(np.zeros((1, 3)))),
+    ("ops/trispline.py",
+     lambda: _grid_system("tristar").ref.eval_fn()),
+    ("ops/trispline.py",
+     lambda: _grid_system("tristar").ref.grid.interp(np.zeros((1, 3)))),
+    ("analysis/mesh.py",
+     lambda: gen_seeds(_crystal(), [Seed(typ="mesh")])),
+    ("ops/ode.py", lambda: makegraph(_grid_system(), None)),
+    ("crystal/fragment.py",
+     lambda: nciplot(_grid_system(), molmotif=True)),
+    ("crystal/spgs.py", lambda: _crystal().spg_name()),
+    ("crystal/wyckoff.py", lambda: _crystal().wyckoffs()),
+    ("fields/wfn.py", lambda: autocp(_wfn_system())),
+], ids=["trispline-grd", "tristar-eval_fn", "tristar-interp", "mesh-seed",
+        "makegraph", "molmotif", "spg_name", "wyckoffs", "wfn-autocp"])
+def test_unported_branches_name_what_they_wait_for(what, call):
+    with pytest.raises(NotImplementedError, match=what):
+        call()
+
+
+def _wfn_system():
+    s = _grid_system()
+    s.ref.type = "wfn"
+    return s
 
 
 def test_explicit_cpu_device_and_dtypes():
