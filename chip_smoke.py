@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # full run: NaCl analogue at 256^3
     python3 chip_smoke.py --profile  # also: where the time of one intgrid,
-                                     # one autocp and one nciplot goes
+                                     # autocp, nciplot, makegraph and
+                                     # Bader intgrid goes
 
 Phases (any failure exits non-zero; no phase catches its own failure):
   1. the card's name and power limit (nvidia-smi);
@@ -46,6 +47,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      nciplot - 256^3 in f32 and f64 (f32 within the JAX package's own
      f32 bounds of f64, ndat > 0, finite cubes), and at 255x253x251 in f64
      the fast path against the generic chunked route;
+  7. the gradient-path and FFT slice on the same 256^3 field (plain
+     PyTorch ops on the card, except multipoles, whose solves go through
+     both CUDA kernels; each part runs with the launch counts reset just
+     before and read just after):
+     multipoles(lmax=2) on the YT result - monopoles equal the charges to
+     1e-10 e, 9 integrands a solve go through yt_gs_pass in chunks of
+     8 + 1, each solve's launches fit the solver's schedule; then yt_pass
+     (f64) and a yt_gs_pass sweep pair (f32) on one attractor's 9
+     sign-changing integrands against their plain versions (1e-13 /
+     bitwise), and four of that attractor's multipoles (l = 0, 1, 2)
+     against the f64 Jacobi route (1e-8);
+     FFT grids - lap, grad, pot, hxx1 against the CPU (1e-10 relative),
+     hxx1+hxx2+hxx3 against lap, time per operator;
+     trispline / tristar - coefficient build times, 131,072 scattered
+     points (value + gradient + Hessian) against the CPU (1e-12), node
+     exactness, autocp with its defaults on both spline fields with
+     Poincare-Hopf sum 0 and |grad| < 1e-10, the trispline CP list
+     against the CPU's;
+     intgrid(method="bader"), neargrid and ongrid - partition of unity,
+     4 atomic basins, charges within 2 % of YT's, labels equal to the
+     CPU's at 64^3, walls and peak device memory;
+     bisect_basin (level-1 rays, Na basin) and sphere_integral against
+     the CPU; fluxprint from 8 seeds, every path ending on a nucleus;
+     makegraph on the tricubic CP list - every bond path ends at two
+     nuclei, Na-Cl connected, attempts, the tracer's wall and kernel
+     launches per attempt;
 then one JSON line of kernel records and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -305,7 +332,8 @@ def slice_phase(dev, n):
     return {"system": s, "raster_s": t_raster, "intgrid_warm_s": t_warm,
             "intgrid_s": t_timed, "nattr": r.nattr_raw,
             "punity_e": punity, "dq_vs_f64_jacobi_e": dq,
-            "launches": launches, "res": res, "f3": f3, "dv": dv}
+            "launches": launches, "res": res, "f3": f3, "dv": dv,
+            "intres": r}
 
 
 def main_shape_phase(sl):
@@ -478,16 +506,19 @@ def profile_phase(sl):
     device_profile(lambda: intgrid(s, method="yt"), "intgrid")
 
 
-def device_profile(fn, label):
+def device_profile(fn, label, cpu=True):
     """Run fn() under torch.profiler: wall, device busy time, device idle
-    share and the ten kernels with the most device time."""
+    share and the ten kernels with the most device time. cpu=False leaves
+    the host's operator records out: for calls of 10^5 launches and more,
+    whose host records take minutes to process."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA], acc_events=True) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -597,9 +628,10 @@ def interp_phase(g):
     return out
 
 
-def timed_autocp(s, seeds):
+def timed_autocp(s, seeds, **kw):
     """One autocp with the walls of its parts: (CP list, record). The
-    seed generator and the Newton search are wrapped for this call."""
+    seed generator and the Newton search are wrapped for this call; kw
+    goes to autocp."""
     import torch
 
     from critic2_tpu_torch.analysis import autocp as auto
@@ -624,7 +656,8 @@ def timed_autocp(s, seeds):
 
     auto.gen_seeds, auto.newton_batch = gen_timed, newton_timed
     try:
-        cpl, rec["autocp_s"] = wall_s(lambda: auto.autocp(s, seeds=seeds))
+        cpl, rec["autocp_s"] = wall_s(lambda: auto.autocp(s, seeds=seeds,
+                                                           **kw))
     finally:
         auto.gen_seeds, auto.newton_batch = gen, newton
     rec["host_s"] = rec["autocp_s"] - rec["seed_s"] - rec["newton_s"]
@@ -703,7 +736,7 @@ def autocp_phase(s):
     log(f"autocp default on the card vs device='cpu' ({t_cpu:.3f} s there): "
         f"same types and multiplicities, {len(got['typ'])} CPs, positions "
         f"within {dmax:.3e} bohr")
-    return out
+    return out, lists["default"]
 
 
 def nci_phase(s):
@@ -790,7 +823,7 @@ def grid_phase(sl, profile):
     ops.reset_launches()
     out = {"interp": interp_phase(s.ref.grid.f)}
     torch.cuda.empty_cache()
-    out["autocp"] = autocp_phase(s)
+    out["autocp"], sl["cpl"] = autocp_phase(s)
     out["nci"] = nci_phase(s)
     log(f"grid path: CUDA kernel launches {dict(ops.launches)} (no kernel "
         "of the port lies on this path)")
@@ -810,11 +843,545 @@ def grid_phase(sl, profile):
     return out
 
 
+def multipoles_phase(sl):
+    """Phase 7a: atomic multipoles on the YT result of the slice phase.
+    Each attractor's solve carries (lmax+1)^2 = 9 integrands, so
+    yt_gs_pass runs in chunks of 8 + 1; both kernels must be launched.
+    Then, outside the counted run: both kernels against their plain
+    versions on one attractor's 9 integrands (sign-changing solid
+    harmonics times rho) at this shape, that attractor's multipoles
+    against the f64 Jacobi route, and the number of sweep pairs each
+    integrand needs to settle."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.analysis import yt
+    from critic2_tpu_torch.analysis.integration import (
+        _multipole_integrands, multipoles)
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    s, r = sl["system"], sl["intres"]
+    res = r.decomp
+    # the launches of each solve: YTResult.integrate, counted per call
+    per_solve = []
+    integrate = res.integrate
+
+    def counted(f):
+        before = dict(ops.launches)
+        q = integrate(f)
+        per_solve.append({k: ops.launches[k] - before[k] for k in before})
+        return q
+
+    res.integrate = counted
+    ops.reset_launches()
+    try:
+        q, t = wall_s(lambda: multipoles(s, r, lmax=2))
+    finally:
+        del res.integrate
+    launches = dict(ops.launches)
+    pc = ops.gs_counts()["pc"]
+    nchunk = -(-9 // pc)
+    check(q.shape == (len(r.rows), 9) and np.isfinite(q).all(),
+          "multipoles: wrong shape or not finite")
+    dq = float(np.abs(q[:, 0] * np.sqrt(4 * np.pi) - r.charges).max())
+    check(dq <= 1e-10, f"multipoles: monopoles differ from the charges by "
+          f"{dq:.3e} e")
+    for k, v in launches.items():
+        check(v > 0, f"the multipoles path launched no {k} kernel")
+    check(pc == ops.GS_MAXP and nchunk == 2, f"multipoles: yt_gs_pass took "
+          f"{pc} integrands a launch, not 8 + 1")
+    # a sweep is one launch per chunk. A solve is 8 sweeps on f, one
+    # yt_pass residual and 8 sweeps on it; where a flag is up after that
+    # it runs again flag-stepped: 8 + 4i and 8 + 4j sweeps, 2 residuals
+    check(len(per_solve) == r.nattr_raw
+          and sum(p["yt_gs_pass"] for p in per_solve)
+          == launches["yt_gs_pass"], f"multipoles: {len(per_solve)} solves "
+          f"for {r.nattr_raw} attractors")
+    sweeps = []
+    for p in per_solve:
+        check(p["yt_gs_pass"] % nchunk == 0, f"multipoles: {p} launches in "
+              f"{nchunk} chunks")
+        n = p["yt_gs_pass"] // nchunk
+        sweeps.append(n)
+        check((n == 16 and p["yt_pass"] == 1)
+              or (n >= 32 and n % 4 == 0 and p["yt_pass"] == 2),
+              f"multipoles: a solve of {n} sweeps and {p['yt_pass']} "
+              "residuals is neither the 4 + 4 pair schedule nor that and "
+              "its flag-stepped repeat")
+    log(f"multipoles lmax=2 on the {N_SLICE}^3 YT result: wall {t:.3f} s, "
+        f"{r.nattr_raw} attractors, 9 integrands a solve in chunks of "
+        f"{pc} + {9 - pc}, launches {launches}, sweeps of each solve "
+        f"{sweeps} x {nchunk} chunks, |monopole/S00 - charge| max "
+        f"{dq:.3e} e, largest dipole {float(np.abs(q[:, 1:4]).max()):.3e}, "
+        f"largest quadrupole {float(np.abs(q[:, 4:]).max()):.3e}")
+    out = {"wall_s": t, "launches": launches, "pc": pc, "dq_e": dq,
+           "sweeps_per_solve": sweeps}
+
+    # the kernels against their plain versions on the integrands of the
+    # first attractor, as its solve calls them
+    a = 0
+    row = r.attr_map[a]
+    offs = res._offs
+    chi32, chi64 = res._chis(adjoint=True)
+    f64 = _multipole_integrands(s.crystal, res.shape, r.rho.reshape(-1),
+                                r.rows[row].xfrac, 2
+                                ).reshape((9,) + res.shape)
+    check(bool((f64[1:].amin((1, 2, 3)) < 0).all()
+               and (f64[1:].amax((1, 2, 3)) > 0).all()),
+          "the l >= 1 integrands do not change sign")
+    s1 = f64 * 0.5
+    k = ops.yt_pass(chi64, s1, f64, offs=offs)
+    (p, ), t_plain = wall_s(lambda: (ops.yt_pass_plain(chi64, s1, f64,
+                                                       offs=offs), ))
+    e = rel_err(k, p)
+    check(e <= 1e-13, f"yt_pass P=9 on the multipole integrands: {e:.3e}")
+    out["yt_pass_p9_ms"] = cuda_ms(
+        lambda: ops.yt_pass(chi64, s1, f64, offs=offs), 5)
+    log(f"yt_pass float64 P=9 on the multipole integrands: rel err {e:.3e} "
+        f"against the plain version ({t_plain * 1e3:.1f} ms there), kernel "
+        f"{out['yt_pass_p9_ms']:.4f} ms")
+    del s1, k, p
+    f32 = f64.to(torch.float32)
+    got = {}
+    for name, gs in (("kernel", ops.yt_gs_pass),
+                     ("plain", ops.yt_gs_pass_plain)):
+        def pair():
+            x, c1 = gs(chi32, f32, f32, offs=offs, backward=False)
+            x, c2 = gs(chi32, x, f32, offs=offs, backward=True)
+            return x, (int(c1), int(c2))
+        got[name], out[f"gs_pair_p9_{name}_s"] = wall_s(pair)
+    check(got["kernel"][1] == got["plain"][1],
+          f"yt_gs_pass P=9: flags {got['kernel'][1]} vs {got['plain'][1]}")
+    check(torch.equal(got["kernel"][0], got["plain"][0]),
+          "yt_gs_pass P=9 first pair on the multipole integrands differs "
+          f"from the plain version: {rel_err(*[g[0] for g in got.values()]):.3e}")
+    log(f"yt_gs_pass float32 P=9 (chunks of {pc} + {9 - pc}) first pair on "
+        f"the multipole integrands: bitwise equal to the plain version, "
+        f"flags {got['kernel'][1]}; kernel "
+        f"{out['gs_pair_p9_kernel_s'] * 1e3:.1f} ms, plain "
+        f"{out['gs_pair_p9_plain_s']:.1f} s the pair")
+    del got
+
+    # that attractor's monopole, one dipole and two quadrupoles (S_00,
+    # S_1-1, S_20, S_22) against the f64 Jacobi route
+    sel = [0, 1, 6, 8]
+    sx, t_xla = wall_s(lambda: yt._xla_sweep(res._chiP, f64[sel], offs))
+    i1, i2, i3 = res._index(res.iattr[a:a + 1])
+    q_ref = sx[:, i1, i2, i3].cpu().numpy()[:, 0] * sl["dv"]
+    del sx
+    scale = np.maximum(np.abs(q_ref), 1.0)
+    dql = float((np.abs(q[row, sel] - q_ref) / scale).max())
+    check(dql <= 1e-8, f"multipoles of {r.rows[row].name} vs the f64 Jacobi "
+          f"route: {dql:.3e}")
+    log(f"multipoles {sel} of {r.rows[row].name} vs the f64 Jacobi route "
+        f"({t_xla:.3f} s): max difference {dql:.3e} (relative above 1, "
+        "absolute below)")
+    out["dq_l_vs_jacobi"] = dql
+
+    # why a solve repeats: sweep pairs until a pair changes no bit (that
+    # clean pair counted), each integrand alone: signed, as its absolute
+    # value, and the residual its correction solve starts from
+    s4, _ = yt._gs_pairs(chi32, f32, f32, offs, True, npair=4)
+    s4 = s4.to(f64.dtype)
+    r32 = (ops.yt_pass(chi64, s4, f64, offs=offs) - s4).to(torch.float32)
+    del s4
+    npairs = {"signed": [], "abs": [], "residual": []}
+    for j in range(9):
+        for tag, ff in (("signed", f32[j:j + 1]),
+                        ("abs", f32[j:j + 1].abs()),
+                        ("residual", r32[j:j + 1])):
+            _, flags, _ = gs_fixpoint(ops.yt_gs_pass, chi32,
+                                      ff.contiguous(), offs, True,
+                                      f"multipole integrand {j} {tag}")
+            npairs[tag].append(len(flags))
+    log(f"yt_gs_pass float32 sweep pairs to a clean pair, the 9 integrands "
+        f"one at a time: signed {npairs['signed']}, absolute values "
+        f"{npairs['abs']}, residuals {npairs['residual']} (a solve repeats "
+        "flag-stepped when any needs more than 4)")
+    out["pairs_to_settle"] = npairs
+    return out
+
+
+def fft_phase(s):
+    """Phase 7b: the FFT-derived grids of the 256^3 field, card against
+    CPU, and the time of each operator."""
+    import torch
+
+    from critic2_tpu_torch.ops import fft as fftops
+
+    g = s.ref.grid.f
+    m = s.crystal.m_x2c
+    gc = g.cpu()
+    out = {}
+    ops_ = {"lap": lambda f: fftops.laplacian(f, m),
+            "grad": lambda f: fftops.gradrho(f, m),
+            "pot": lambda f: fftops.pot(f, m),
+            "hxx1": lambda f: fftops.hxx(f, m, 0)}
+    for kind, fn in ops_.items():
+        fid = s.load_field_as(kind, src=s.iref, fid=900)
+        got = s.field(fid).grid.f
+        check(got.is_cuda and got.dtype == torch.float64
+              and got.shape == g.shape, f"load_field_as {kind}: wrong tensor")
+        ref, t_cpu = wall_s(lambda: fn(gc))
+        e = rel_err(got.cpu(), ref)
+        check(e <= 1e-10, f"FFT grid {kind}: card vs CPU {e:.3e}")
+        out[kind + "_ms"] = cuda_ms(lambda: fn(g), 3)
+        log(f"fft {kind} {N_SLICE}^3 f64: {out[kind + '_ms']:.3f} ms on the "
+            f"card ({t_cpu:.3f} s on the CPU), card vs CPU rel {e:.3e}")
+        del ref
+    s.fields.pop(900)
+    lap = fftops.laplacian(g, m)
+    tr = fftops.hxx(g, m, 0) + fftops.hxx(g, m, 1) + fftops.hxx(g, m, 2)
+    e = rel_err(tr, lap)
+    check(e <= 1e-10, f"hxx1 + hxx2 + hxx3 vs lap: {e:.3e}")
+    v = fftops.pot(g, m)
+    check(abs(float(v.mean())) <= 1e-10 * float(v.abs().max()),
+          "pot: V(G=0) is not zero")
+    log(f"fft: hxx1 + hxx2 + hxx3 vs lap rel {e:.3e}; pot has zero mean")
+    return out
+
+
+def spline_phase(s, tricubic_ms):
+    """Phase 7c: trispline and tristar on the 256^3 field."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.analysis.autocp import autocp
+    from critic2_tpu_torch.convert import (cplist_to_arrays,
+                                           crystal_to_arrays,
+                                           system_from_arrays)
+    from critic2_tpu_torch.ops import trispline as tri
+
+    g = s.ref.grid.f
+    npts = 131072
+    rng = np.random.default_rng(13)
+    pts = torch.as_tensor(rng.random((3, npts)), device=g.device)
+    idx = torch.as_tensor(rng.integers(0, N_SLICE, (3, 4096)),
+                          device=g.device)
+    nodes = idx.to(torch.float64) / N_SLICE
+    node_vals = g[idx[0], idx[1], idx[2]]
+    names = ("value", "gradient", "Hessian")
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+
+    coef, out["spline_coeffs_s"] = wall_s(lambda: tri.spline_coeffs(g))
+    c2, out["star_c2_s"] = wall_s(lambda: tri.star_c2(g))
+    coef_cpu, t_cpu = wall_s(lambda: tri.spline_coeffs(g.cpu()))
+    e = rel_err(coef.cpu(), coef_cpu)
+    check(e <= 1e-10, f"spline_coeffs card vs CPU: {e:.3e}")
+    log(f"trispline: spline_coeffs {out['spline_coeffs_s']:.3f} s "
+        f"({coef.numel() * 8 / 2**30:.2f} GiB; {t_cpu:.3f} s on the CPU, "
+        f"rel {e:.3e}), star_c2 {out['star_c2_s']:.3f} s "
+        f"({c2.numel() * 8 / 2**30:.2f} GiB)")
+    c2_cpu = c2.cpu()
+    gc = g.cpu()
+    evals = {"trispline": (lambda x, nder=2: tri.trispline_soa(coef, x, nder),
+                           lambda x: tri.trispline_soa(coef_cpu, x)),
+             "tristar": (lambda x, nder=2: tri.trispline_star_soa(g, c2, x,
+                                                                  nder),
+                         lambda x: tri.trispline_star_soa(gc, c2_cpu, x))}
+    for mode, (fn, fn_cpu) in evals.items():
+        y0 = fn(nodes, 0)[0]
+        e0 = float((y0 - node_vals).abs().max()) / float(node_vals.abs().max())
+        check(e0 <= 1e-12, f"{mode}: node values off by {e0:.3e}")
+        sub = pts[:, :4096]
+        errs = [rel_err(a.cpu(), b) for a, b in zip(fn(sub), fn_cpu(sub.cpu()))]
+        for nm, e in zip(names, errs):
+            check(e <= 1e-12, f"{mode} card vs CPU, {nm}: {e:.3e}")
+        ms = cuda_ms(lambda: fn(pts), 5)
+        out[f"{mode}_ms"] = ms
+        log(f"{mode}: 131072 points, value + gradient + Hessian: {ms:.4f} ms, "
+            f"{npts / ms / 1e3:.3f} M evals/s (tricubic interp_soa f64 "
+            f"{tricubic_ms:.4f} ms); nodes exact to {e0:.3e}; card vs CPU at "
+            "4096 points rel " + ", ".join(f"{nm} {e:.3e}"
+                                          for nm, e in zip(names, errs)))
+    del coef, c2, coef_cpu, c2_cpu
+
+    # AUTO with its defaults on both spline fields, and the trispline run
+    # against the same call with every tensor on the CPU
+    c = s.crystal
+    for mode in ("trispline", "tristar"):
+        s.ref.set_options(interp=mode)
+        # one call each (the coefficient build is inside it): on tristar
+        # some lanes run all 200 Newton iterations
+        cpl, rec = timed_autocp(s, None)
+        rec["gfmod_max"] = check_cplist(s, cpl, mode)
+        out[f"autocp_{mode}"] = rec
+        log(f"autocp (defaults) on the {mode} field: counts (n, b, r, c) "
+            f"{tuple(rec['counts'])}, Poincare-Hopf 0, max |grad| "
+            f"{rec['gfmod_max']:.3e}, {rec['converged']} of {rec['seeds']} "
+            f"seeds converged, wall {rec['autocp_s']:.4f} s (coefficient "
+            f"build included), Newton {rec['newton_s']:.4f} s, iterations "
+            f"{rec['iterations']}")
+        if mode == "trispline":
+            scpu = system_from_arrays(**crystal_to_arrays(c), grid=gc.numpy(),
+                                      device="cpu", interp=mode)
+            ref, t_cpu = wall_s(lambda: cplist_to_arrays(autocp(scpu)))
+            got = cplist_to_arrays(cpl)
+            for key in ("typ", "mult", "isnuc"):
+                check(np.array_equal(got[key], ref[key]), f"autocp {mode} "
+                      f"card vs CPU: {key} {got[key]} vs {ref[key]}")
+            sg = c.spacegroup
+            dmax = 0.0
+            for xa, xb in zip(got["x"], ref["x"]):
+                imgs = (sg.rotations @ xb + sg.translations) % 1.0
+                dmax = max(dmax, float(c.distmat(xa, imgs).min()))
+            check(dmax <= 1e-9, f"autocp {mode} card vs CPU: positions "
+                  f"differ by {dmax:.3e} bohr")
+            log(f"autocp on the {mode} field, card vs device='cpu' "
+                f"({t_cpu:.3f} s there, coefficient build included): same "
+                f"types and multiplicities, {len(got['typ'])} CPs, positions "
+                f"within {dmax:.3e} bohr")
+            del scpu
+    s.ref.set_options(interp="tricubic")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak device memory of the spline phase {out['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernels_launched(fn) -> int:
+    """Device kernels and copies that fn() launches (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def graph_phase(s, cpl):
+    """Phase 7f: makegraph on the tricubic CP list of the grid phase."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.analysis.autocp import makegraph
+    from critic2_tpu_torch.ops import ode
+
+    # the stepper's BS23 attempt and the tracer, wrapped for this call:
+    # attempts counted, the tracer's wall summed
+    cnt = {"attempts": 0, "lane_attempts": 0, "trace_s": 0.0}
+    attempt, trace = ode._attempt, ode.trace_paths
+
+    def counted(su, st):
+        cnt["attempts"] += 1
+        cnt["lane_attempts"] += st[0].shape[1]
+        return attempt(su, st)
+
+    def trace_timed(*a, **kw):
+        out, dt = wall_s(lambda: trace(*a, **kw))
+        cnt["trace_s"] += dt
+        return out
+
+    ode._attempt, ode.trace_paths = counted, trace_timed
+    try:
+        _, t = wall_s(lambda: makegraph(s, cpl))
+    finally:
+        ode._attempt, ode.trace_paths = attempt, trace
+    made = dict(cnt)                # makegraph's own counts
+    bcps = [cp for cp in cpl.cps if cp.typ == -1]
+    rcps = [cp for cp in cpl.cps if cp.typ == 1]
+    check(len(bcps) > 0, "makegraph: the CP list has no bond point")
+    pairs = set()
+    for cp in bcps:
+        check(cp.ipath is not None and min(cp.ipath) >= 0
+              and all(cpl.cps[i].isnuc for i in cp.ipath),
+              f"makegraph: bond point {cp.name} has ends {cp.ipath}")
+        check(all(np.isfinite(cp.brpathlen)) and min(cp.brpathlen) > 0,
+              f"makegraph: bond point {cp.name} path lengths {cp.brpathlen}")
+        pairs.add(tuple(sorted(cpl.cps[i].name for i in cp.ipath)))
+    check(("Cl", "Na") in pairs, f"makegraph: no Na-Cl bond path in {pairs}")
+    nring = sum(min(cp.ipath) >= 0 for cp in rcps)
+
+    # kernel launches of one attempt: the bond paths for one 16-attempt
+    # segment and for up to three under the profiler, the difference over
+    # the attempts between; the set-up (targets, first evaluation) and the
+    # final scatter cancel, no batch this small is packed
+    seeds = torch.as_tensor(
+        np.array([cp.r + sg * 1e-2 * cp.brvec for cp in bcps
+                  for sg in (1.0, -1.0)]), device=s.ref.device)
+    fn = s.ref.eval_fn(nder=2)
+    tgt = s.ref._nucleus_images()
+    nk, na = [], []
+    ode._attempt = counted
+    try:
+        for mstep in (16, 48):
+            cnt["attempts"] = 0
+            nk.append(kernels_launched(lambda: trace(
+                fn, seeds, iup=1, targets=tgt, rterm=np.full(len(tgt), 0.1),
+                mstep=mstep)))
+            na.append(cnt["attempts"])
+    finally:
+        ode._attempt = attempt
+    check(na[0] == 16 and na[1] > 16, f"the profiled traces took {na} "
+          "attempts")
+    cnt = made
+    out = {"wall_s": t, "trace_s": cnt["trace_s"],
+           "attempts": cnt["attempts"],
+           "lane_attempts": cnt["lane_attempts"], "paths": 2 * (len(bcps)
+                                                               + len(rcps)),
+           "profiled_attempts": na, "profiled_launches": nk,
+           "launches_per_attempt": (nk[1] - nk[0]) / (na[1] - na[0]),
+           "trace_ms_per_attempt": cnt["trace_s"] * 1e3 / cnt["attempts"]}
+    log(f"makegraph on the {N_SLICE}^3 tricubic CP list: {len(bcps)} bond and "
+        f"{len(rcps)} ring points, {out['paths']} paths, wall {t:.3f} s, of "
+        f"it trace_paths {cnt['trace_s']:.3f} s in {cnt['attempts']} BS23 "
+        f"attempts (trace_paths wall / attempts "
+        f"{out['trace_ms_per_attempt']:.3f} ms, {cnt['lane_attempts']} "
+        f"lane-attempts), {out['launches_per_attempt']:.1f} kernel launches "
+        f"an attempt ({nk[1]} in {na[1]} attempts less {nk[0]} in {na[0]}); "
+        f"every bond path ends at two nuclei, pairs {sorted(pairs)}; {nring} "
+        f"of {len(rcps)} ring points reach two cages")
+    return out
+
+
+def bader_phase(s, yt_rows):
+    """Phase 7d: intgrid(method="bader"), both assignments, at 256^3, and
+    the labels against the CPU's at 64^3."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.analysis.bader import bader_integrate
+    from critic2_tpu_torch.analysis.integration import (_rasterize_field,
+                                                        intgrid)
+
+    g = s.ref.grid.f
+    c = s.crystal
+    dv = c.volume / g.numel()
+    total = float(g.sum()) * dv
+    q_yt = {}
+    for row in yt_rows:
+        q_yt[row.atom] = row.pop
+    out = {}
+    for bm in ("neargrid", "ongrid"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r, t = wall_s(lambda: intgrid(s, method="bader", bader_method=bm))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        q = np.array([row.pop for row in r.rows])
+        names = sorted(row.name for row in r.rows)
+        check(names == ["Cl", "Cl", "Na", "Na"] and r.nattr_raw == 4,
+              f"bader {bm}: basin rows {names}, {r.nattr_raw} attractors")
+        pu = abs(q.sum() - total)
+        check(pu <= 1e-8, f"bader {bm}: partition of unity {pu:.3e} e")
+        vu = abs(sum(row.volume for row in r.rows) - c.volume)
+        dmax = max(abs(row.pop - q_yt[row.atom]) / q_yt[row.atom]
+                   for row in r.rows)
+        check(dmax < 0.02, f"bader {bm}: charges differ from YT's by "
+              f"{dmax:.3e} relative")
+        out[bm] = {"wall_s": t, "peak_gib": peak, "punity_e": pu,
+                   "dq_vs_yt_rel": dmax}
+        log(f"intgrid bader {bm} {N_SLICE}^3: wall {t:.3f} s, peak device "
+            f"memory {peak:.2f} GiB, 4 atomic basins, |sum q - int rho| = "
+            f"{pu:.3e} e, |sum V - cell| = {vu:.3e} bohr^3, charges within "
+            f"{dmax:.3e} relative of YT's")
+        log(r.table())
+        del r
+    g64 = _rasterize_field(s.fields[0], (64, 64, 64))
+    for bm in ("neargrid", "ongrid"):
+        a = bader_integrate(c, g64, method=bm)
+        b = bader_integrate(c, g64.cpu(), method=bm)
+        check(a.nattr == b.nattr and np.array_equal(a.iattr, b.iattr)
+              and torch.equal(a.labels_d.cpu(), b.labels_d),
+              f"bader {bm} at 64^3: the card's labels differ from the CPU's")
+    log("bader at 64^3: labels and attractors on the card equal the CPU's, "
+        "neargrid and ongrid")
+    return out
+
+
+def bisect_flux_phase(s):
+    """Phase 7e: IAS bisection of the Na basin, a sphere integral and
+    FLUXPRINT, card against CPU."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.analysis.bisect import (basin_rays, bisect_basin,
+                                                   sphere_integral)
+    from critic2_tpu_torch.analysis.flux import fluxprint
+    from critic2_tpu_torch.convert import (crystal_to_arrays,
+                                           system_from_arrays)
+
+    c = s.crystal
+    scpu = system_from_arrays(**crystal_to_arrays(c),
+                              grid=s.ref.grid.f.cpu().numpy(), device="cpu")
+    dirs, _ = basin_rays(level=1)
+    # one bisection step is a whole trace of every ray: 1e-2 bohr (10
+    # steps), not the default 1e-4 (17 steps), keeps the phase short
+    tol = 1e-2
+    log(f"bisect_basin runs at tol={tol:g} bohr (the default is 1e-4)")
+    center = c.x_frac[0]
+    r, t = wall_s(lambda: bisect_basin(s, center, dirs, tol=tol))
+    r_cpu, t_cpu = wall_s(lambda: bisect_basin(scpu, center, dirs, tol=tol))
+    rmax = float(np.linalg.norm(c.ws.vertices, axis=1).max())
+    check(np.isfinite(r).all() and (r > 0).all() and (r < rmax).all(),
+          f"bisect_basin: radii {r} outside (0, {rmax})")
+    dr = float(np.abs(r - r_cpu).max())
+    check(dr <= tol, f"bisect_basin card vs CPU: {dr:.3e} bohr")
+    log(f"bisect_basin Na, {len(dirs)} rays: wall {t:.3f} s on the card "
+        f"({t_cpu:.3f} s on the CPU), radii {r.min():.4f} .. {r.max():.4f} "
+        f"bohr below the WS circumradius {rmax:.4f}, card vs CPU "
+        f"{dr:.3e} bohr")
+    v, t_sph = wall_s(lambda: sphere_integral(s, center, 1.5))
+    v_cpu = sphere_integral(scpu, center, 1.5)
+    e = abs(v - v_cpu) / abs(v_cpu)
+    check(np.isfinite(v) and e <= 1e-10,
+          f"sphere_integral card vs CPU: {e:.3e}")
+    log(f"sphere_integral r=1.5 bohr around Na: {v:.10f} ({t_sph:.4f} s), "
+        f"card vs CPU rel {e:.3e}")
+
+    rng = np.random.default_rng(17)
+    seeds = (c.x_cart[rng.integers(0, c.ncel, 8)]
+             + rng.normal(0.0, 1.2, (8, 3)))
+    scene, t_flux = wall_s(lambda: fluxprint(s, seeds, iup=1, nrec=300))
+    nuc = torch.as_tensor(s.ref._nucleus_images())
+    for p in scene.pathpts:
+        d = float((nuc - torch.as_tensor(p[-1])).norm(dim=1).min())
+        check(d < 1e-9, f"fluxprint: a path ends {d:.3e} bohr off a nucleus")
+    log(f"fluxprint, 8 seeds uphill: wall {t_flux:.3f} s, "
+        f"{sum(len(p) for p in scene.pathpts)} recorded points, every path "
+        "ends on a nucleus")
+    return {"bisect_s": t, "bisect_cpu_s": t_cpu, "bisect_dr": dr,
+            "tol": tol, "sphere_rel": e, "flux_s": t_flux}
+
+
+def path_phase(sl, grid_out, profile):
+    """Phase 7b-f on the slice phase's system; the launch counts are reset
+    before and read after (no kernel of the port lies on these parts)."""
+    from critic2_tpu_torch.analysis.autocp import makegraph
+    from critic2_tpu_torch.analysis.integration import intgrid
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    s = sl["system"]
+    ops.reset_launches()
+    out = {"fft": fft_phase(s)}
+    out["spline"] = spline_phase(
+        s, grid_out["interp"]["interp_soa_float64_ms"])
+    out["bader"] = bader_phase(s, sl["intres"].rows)
+    out["bisect_flux"] = bisect_flux_phase(s)
+    # last: its launch count switches the profiler on, which slows every
+    # later launch of the process
+    out["makegraph"] = graph_phase(s, sl["cpl"])
+    log(f"gradient-path and FFT parts: CUDA kernel launches "
+        f"{dict(ops.launches)} (no kernel of the port lies on them)")
+    if profile:
+        device_profile(lambda: makegraph(s, sl["cpl"]), "makegraph",
+                       cpu=False)
+        device_profile(lambda: intgrid(s, method="bader"),
+                       "intgrid bader neargrid", cpu=False)
+    log(json.dumps({"path_slice": out}))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also break one intgrid, one autocp and one "
-                    "nciplot down by stage and kernel")
+                    help="also break one intgrid, autocp, nciplot, "
+                    "makegraph and Bader intgrid down by stage and kernel")
     args = ap.parse_args()
 
     import torch
@@ -853,11 +1420,19 @@ def main() -> int:
     meas = main_shape_phase(sl)
     if args.profile:
         profile_phase(sl)
-    sl.pop("res"), sl.pop("f3")         # the YT phases' tensors: free them
+    t0 = time.perf_counter()
+    mp = multipoles_phase(sl)
+    log(f"multipoles phase: {time.perf_counter() - t0:.1f} s")
+    # the YT phases' tensors: free them (the rows and charges stay)
+    sl.pop("res"), sl.pop("f3")
+    sl["intres"].decomp = sl["intres"].rho = None
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    grid_phase(sl, args.profile)
+    grid_out = grid_phase(sl, args.profile)
     log(f"grid path phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    path_phase(sl, grid_out, args.profile)
+    log(f"gradient-path and FFT phase: {time.perf_counter() - t0:.1f} s")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -868,7 +1443,9 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": sl["launches"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": "bytes", "library_ms": None, **m.get("extra", {})})
+            "bound_by": "bytes", "library_ms": None,
+            "launches_multipoles": mp["launches"][name],
+            **m.get("extra", {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -488,11 +488,88 @@ def autocp(system, seeds: list[Seed] | None = None, gfnormeps: float = 1e-12,
 def makegraph(system, cpl: CPList, change: float = 1e-2,
               rterm: float = 0.1):
     """Build the bond-path / ring-path graph (reference makegraph,
-    src/autocp@proc.f90:1734-1877): gradient paths traced from every BCP
-    and RCP to the CPs they connect."""
-    raise NotImplementedError(
-        "makegraph waits for ops/ode.py (the batched gradient-path "
-        "tracer), which is not ported to the torch package yet")
+    src/autocp@proc.f90:1734-1877).
+
+    For each BCP, trace uphill from +-change along the positive-eigenvalue
+    eigenvector to the connected maxima; for each RCP, downhill along the
+    negative-eigenvalue eigenvector to the connected cages. All paths of
+    one kind run as one batched device trace (ops/ode.trace_paths)
+    instead of the reference's per-CP OpenMP loop. Fills cp.brvec,
+    cp.brpathlen and cp.ipath (indices into cpl.cps; -1 =
+    escaped/unknown).
+    """
+    from ..ops.eig3 import eigh3
+    from ..ops.ode import trace_paths
+
+    resolve_device(system.device)
+    c = system.crystal
+    f = system.ref
+    if f.type not in ("grid", "promol"):
+        raise NotImplementedError(
+            f"makegraph on {f.type} fields (the screened-wavefunction "
+            "tracer included) waits for fields/wfn.py, which is not ported "
+            "to the torch package yet")
+
+    def _targets(typ_sel):
+        idx = [i for i, cp in enumerate(cpl.cps) if cp.typ == typ_sel]
+        if not idx:
+            return np.zeros((0, 3)), np.zeros(0, dtype=int)
+        if c.ismolecule:
+            return (np.array([cpl.cps[i].r for i in idx]),
+                    np.array(idx))
+        # expand each representative to its full symmetry orbit, then to
+        # the 27 neighboring cells (reference cpcel list)
+        sg = c.spacegroup
+        pos, ids = [], []
+        for i in idx:
+            orb = sg.orbit(cpl.cps[i].x)
+            pos.append(orb)
+            ids.extend([i] * len(orb))
+        pos = np.concatenate(pos)
+        ids = np.asarray(ids)
+        shifts = np.array([[i, j, k] for i in (-1, 0, 1)
+                           for j in (-1, 0, 1) for k in (-1, 0, 1)])
+        imgs = (pos[None, :, :] + shifts[:, None, :]).reshape(-1, 3)
+        return c.x2c(imgs), np.tile(ids, len(shifts))
+
+    fn = f.eval_fn(nder=2)
+    for typ, iup, ttyp in ((-1, 1, f.typnuc), (1, -1, -f.typnuc)):
+        sel = [i for i, cp in enumerate(cpl.cps) if cp.typ == typ]
+        if not sel:
+            continue
+        hf = f.grd(np.array([cpl.cps[i].r for i in sel]), nder=2).hf
+        v = eigh3(hf)[1].cpu().numpy()
+        # BCP: positive-eigenvalue direction (column 2); RCP: most
+        # negative (column 0)
+        vec = v[:, :, 2] if typ == -1 else v[:, :, 0]
+        seeds, owner, sgn = [], [], []
+        for k, i in enumerate(sel):
+            for s in (+1.0, -1.0):
+                seeds.append(cpl.cps[i].r + s * change * vec[k])
+                owner.append(i)
+                sgn.append(s)
+        tgt, tgt_ids = _targets(ttyp)
+        _, status, termid, plen, _ = trace_paths(
+            fn, torch.as_tensor(np.array(seeds), dtype=FDTYPE,
+                                device=f.device),
+            iup=iup, targets=tgt if len(tgt) else None,
+            rterm=np.full(len(tgt), rterm) if len(tgt) else None,
+            m_c2x=c.m_c2x if c.ismolecule else None,
+            molborder=c.molborder if c.ismolecule else None)
+        status = status.cpu().numpy()
+        termid = termid.cpu().numpy()
+        plen = plen.cpu().numpy()
+        for j, i in enumerate(owner):
+            cp = cpl.cps[i]
+            if cp.ipath is None:
+                cp.ipath = [-1, -1]
+                cp.brpathlen = [0.0, 0.0]
+                cp.brvec = vec[sel.index(i)]
+            d = 0 if sgn[j] > 0 else 1
+            cp.brpathlen[d] = float(plen[j])
+            if status[j] == 0 and termid[j] >= 0:
+                cp.ipath[d] = int(tgt_ids[termid[j]])
+    return cpl
 
 
 def cell_cp_list(system, cpl: CPList):

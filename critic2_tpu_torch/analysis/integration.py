@@ -1,4 +1,4 @@
-"""Basin integration: YT + attractor-atom matching + integration.
+"""Basin integration: YT/Bader + attractor-atom matching + integration.
 
 Role of the reference integration (src/integration@proc.f90): build the
 basin field (optionally core-augmented), run the decomposition, match
@@ -7,8 +7,9 @@ maxima become non-nuclear maxima, NNM), then integrate the volume, the
 charge and any extra integrand in one batched adjoint solve.
 
 Device: rasterization, decomposition and the solve. Host: matching,
-merging, table assembly. The port carries method="yt"; Bader, the sharded
-mesh, INTEGRABLE expressions, DISCARD and multipoles are not ported yet.
+merging, table assembly. The port carries method="yt" and "bader" and the
+atomic multipoles; the sharded mesh, INTEGRABLE expressions and DISCARD
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,9 +18,10 @@ from dataclasses import dataclass, field as dfield
 import numpy as np
 import torch
 
+from .bader import bader_integrate
 from .yt import yt_integrate
 
-__all__ = ["intgrid", "IntegrationResult", "BasinRow"]
+__all__ = ["intgrid", "multipoles", "IntegrationResult", "BasinRow"]
 
 
 @dataclass
@@ -39,7 +41,7 @@ class IntegrationResult:
     method: str
     rows: list
     nattr_raw: int
-    decomp: object = None        # YTResult (weight access)
+    decomp: object = None        # YTResult/BaderResult (weight access)
     attr_map: list = None        # row index per raw attractor
     grid_shape: tuple = None
     rho: object = None           # basin-field grid (device tensor)
@@ -90,10 +92,13 @@ def _match_attractors(crystal, xattr, ratom):
 
 def intgrid(system, method: str = "yt", ratom: float = 1.0,
             fields: dict | None = None, block: int = 1 << 16,
-            grid_shape=None, mesh=None, nnm: bool = True,
-            noatoms: bool = False, discard: str | None = None):
+            grid_shape=None, bader_method: str = "neargrid", mesh=None,
+            nnm: bool = True, noatoms: bool = False,
+            discard: str | None = None):
     """Run grid basin integration on the reference field of `system`.
 
+    method: "yt" or "bader" (bader_method selects the reference's
+    NEARGRID default or ONGRID, src/bader@proc.f90:81).
     The reference field must be (or is rasterized to, at `grid_shape`,
     64^3 by default) a grid; its core-augmented variant is the basin field
     when the field has usecore set (src/integration@proc.f90:176-183).
@@ -104,17 +109,14 @@ def intgrid(system, method: str = "yt", ratom: float = 1.0,
     (bohr) from any atom as non-nuclear maxima; noatoms=True treats all
     attractors as NNM. Everything runs on the system's device.
     """
-    if method == "bader":
-        raise NotImplementedError("method='bader' is not ported to the "
-                                  "torch package yet")
-    if method != "yt":
+    if method not in ("yt", "bader"):
         raise ValueError(f"unknown integration method {method}")
     if mesh is not None:
         raise NotImplementedError("mesh= (sharded YT) is not ported to the "
                                   "torch package yet")
     if discard:
-        raise NotImplementedError("discard= is not ported to the torch "
-                                  "package yet")
+        raise NotImplementedError("discard= waits for arithmetic.py, which "
+                                  "is not ported to the torch package yet")
     f = system.ref
     c = system.crystal
     if f.type == "grid":
@@ -127,7 +129,11 @@ def intgrid(system, method: str = "yt", ratom: float = 1.0,
         shape = tuple(grid_shape or (64, 64, 64))
         rho = _rasterize_field(f, shape, block=block)
 
-    res = yt_integrate(c, rho)
+    if method == "yt":
+        res = yt_integrate(c, rho)
+    else:
+        res = bader_integrate(c, rho, block=max(block, 1 << 16),
+                              method=bader_method)
 
     npts = float(np.prod(shape))
     scale = c.volume / npts
@@ -180,9 +186,51 @@ def intgrid(system, method: str = "yt", ratom: float = 1.0,
                              grid_shape=shape, rho=rho)
 
 
+def _multipole_integrands(crystal, shape, rho_flat, center, lmax: int):
+    """(nlm, N) integrands rho r^l S_lm(r - center) on the grid nodes, the
+    displacements by minimum image; center is fractional."""
+    from ..ops.rlm import solid_harmonics
+
+    dev, dt = rho_flat.device, rho_flat.dtype
+    n1, n2, n3 = shape
+    idx = torch.arange(n1 * n2 * n3, device=dev)
+    xf = torch.stack([(idx // (n2 * n3)).to(dt) / n1,
+                      ((idx // n3) % n2).to(dt) / n2,
+                      (idx % n3).to(dt) / n3], dim=1)            # (N, 3)
+    m_x2c = torch.as_tensor(np.asarray(crystal.m_x2c), dtype=dt, device=dev)
+    d = xf - torch.as_tensor(np.asarray(center), dtype=dt, device=dev)[None, :]
+    d = d - torch.round(d)
+    rl = solid_harmonics((d @ m_x2c.T).T, lmax)           # (nlm, N)
+    return rl * rho_flat[None, :]
+
+
 def multipoles(system, intres: IntegrationResult, lmax: int = 4):
-    raise NotImplementedError("multipoles are not ported to the torch "
-                              "package yet")
+    """Atomic multipoles Q_lm = int_basin w rho r^l S_lm(r - x_attr)
+    (reference intgrid_multipoles, src/integration@proc.f90:1102-1178).
+
+    Returns (nrows, (lmax+1)^2) with components in -m..m order per l,
+    centered on each row's attractor (minimum-image displacements). One
+    whole adjoint solve with (lmax+1)^2 integrands runs per attractor, on
+    the device of the integration result.
+    """
+    from ..ops.rlm import nlm
+
+    c = system.crystal
+    res = intres.decomp
+    shape = intres.grid_shape
+    rho_flat = intres.rho.reshape(-1)
+    scale = c.volume / float(np.prod(shape))
+
+    out = np.zeros((len(intres.rows), nlm(lmax)))
+    for a in range(res.nattr):
+        row = intres.attr_map[a]
+        if row < 0:              # DISCARDed attractor
+            continue
+        f = _multipole_integrands(c, shape, rho_flat,
+                                  intres.rows[row].xfrac, lmax)
+        qa = res.integrate(f)                             # (nlm, nattr)
+        out[row] += np.asarray(qa[:, a]) * scale
+    return out
 
 
 def _grid_points(crystal, shape, lo, hi, dtype, device):

@@ -3,7 +3,8 @@
 A structure travels as m_x2c (3,3), x_frac (ncel,3), species_of (ncel,),
 species [(name, Z)] and, for a molecule, ismolecule / molx0 / molborder;
 a grid field as its (n1,n2,n3) array; a critical-point list as one array
-per attribute. From them
+per attribute (the bond/ring-path graph included); a Bader result and an
+integration result's rows likewise. From them
 the port builds its own Crystal, Field and System, so both packages
 compute on identical inputs. Nothing here imports the JAX package: the
 caller reads the arrays off its objects (``crystal_to_arrays`` works on
@@ -80,4 +81,36 @@ def cplist_to_arrays(cpl) -> dict:
                             dtype=float).reshape(-1, 3),
             "mult": np.array([cp.mult for cp in cps], dtype=int),
             "isnuc": np.array([cp.isnuc for cp in cps], dtype=bool),
-            "name": np.array([cp.name for cp in cps], dtype=str)}
+            "name": np.array([cp.name for cp in cps], dtype=str),
+            # the graph of makegraph; CPs without paths read -1 / 0 / 0
+            "ipath": np.array([_or(cp, "ipath", [-1, -1]) for cp in cps],
+                              dtype=int).reshape(-1, 2),
+            "brpathlen": np.array([_or(cp, "brpathlen", [0.0, 0.0])
+                                   for cp in cps], dtype=float).reshape(-1, 2),
+            "brvec": np.array([_or(cp, "brvec", np.zeros(3)) for cp in cps],
+                              dtype=float).reshape(-1, 3)}
+
+
+def _or(obj, attr, default):
+    value = getattr(obj, attr, None)
+    return default if value is None else value
+
+
+def bader_to_arrays(res) -> dict:
+    """The numpy form of a BaderResult of either package."""
+    return {"labels": np.asarray(res.labels, dtype=np.int64),
+            "iattr": np.asarray(res.iattr, dtype=np.int64),
+            "xattr": np.asarray(res.xattr, dtype=float).reshape(-1, 3),
+            "nattr": int(res.nattr)}
+
+
+def integration_to_arrays(intres) -> dict:
+    """The numpy form of an IntegrationResult's rows, of either package."""
+    rows = intres.rows
+    return {"name": np.array([r.name for r in rows], dtype=str),
+            "atom": np.array([r.atom for r in rows], dtype=int),
+            "xfrac": np.array([r.xfrac for r in rows],
+                              dtype=float).reshape(-1, 3),
+            "volume": np.array([r.volume for r in rows], dtype=float),
+            "pop": np.array([r.pop for r in rows], dtype=float),
+            "attr_map": np.array(intres.attr_map, dtype=int)}

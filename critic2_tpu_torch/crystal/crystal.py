@@ -54,6 +54,7 @@ class Crystal:
         self._ws = None
         self._mxr = None
         self._sg = None
+        self._nstar = None
 
     @property
     def ncel(self) -> int:
@@ -226,6 +227,33 @@ class Crystal:
         fbuf = rmax / widths
         ok = np.all((pos > -fbuf - 1e-9) & (pos < 1.0 + fbuf + 1e-9), axis=1)
         return cart[ok], spc[ok], cidx[ok]
+
+    # ------------------------------------------------------------------
+    # covalent connectivity (asterisms)
+    # ------------------------------------------------------------------
+    def bonds(self, bondfactor: float = 1.4):
+        """Covalent bond list [(i, j, lvec)] using covalent radii, the role
+        of find_asterisms_covalent (src/environmod@proc.f90:1334)."""
+        if self._nstar is not None:
+            return self._nstar
+        zs = self.zatoms
+        rad = np.array([param.covalent_radius(z) for z in zs])
+        rmax = (rad[:, None] + rad[None, :]).max() * bondfactor \
+            if len(rad) else 0.0
+        pos, spc, cidx = self.atomic_environment(rmax + 1e-6)
+        out = []
+        cart = self.x_cart
+        radspc = np.array([param.covalent_radius(s.z) for s in self.species])
+        frac_img = self.c2x(pos)
+        for i in range(self.ncel):
+            d = np.linalg.norm(pos - cart[i], axis=1)
+            cut = (rad[i] + radspc[spc]) * bondfactor
+            sel = np.where((d > 1e-6) & (d <= cut))[0]
+            for j in sel:
+                lvec = np.rint(frac_img[j] - self.x_frac[cidx[j]]).astype(int)
+                out.append((i, int(cidx[j]), tuple(lvec)))
+        self._nstar = out
+        return out
 
     def __repr__(self):
         kind = "molecule" if self.ismolecule else "crystal"

@@ -23,8 +23,7 @@ import torch
 
 from ..config import FDTYPE
 from ..ops.eig3 import linmap, sym6_rotation
-from ..ops.interp import interp_soa
-from .grid3 import Grid3, check_mode_ported, detect_grid_format
+from .grid3 import Grid3, detect_grid_format
 from .promol import PromolEnv, promolecular_soa
 
 
@@ -218,9 +217,14 @@ class Field:
         promol = self.promol
         env = self.coreenv
         if ftype == "grid":
-            grid_f, grid_mode = self.grid.f, self.grid.mode
-            check_mode_ported(grid_mode)
-            dev, dt = grid_f.device, grid_f.dtype
+            grid = self.grid
+            dev, dt = grid.f.device, grid.f.dtype
+            # build the lazy coefficient grids of the spline modes now,
+            # not inside the first evaluation
+            if grid.mode == "trispline":
+                grid.spline_coeffs
+            elif grid.mode == "tristar":
+                grid.star_c2
         else:
             dev, dt = promol.atpos.device, promol.atpos.dtype
 
@@ -237,8 +241,7 @@ class Field:
                 # scattered tricubic points take the 64-element stencil
                 # gather; ops.interp.interp_soa_rows computes the same
                 # numbers from whole-row gathers
-                y, yp, ypp6 = interp_soa(grid_f, wx, mode=grid_mode,
-                                         nder=nder)
+                y, yp, ypp6 = grid.interp_soa(wx, nder=nder)
                 f = y
                 gf = linmap(m_c2x.T, yp)
                 h6 = linmap(r6, ypp6)

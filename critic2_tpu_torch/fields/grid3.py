@@ -2,21 +2,22 @@
 
 Role of the reference grid3mod (src/grid3mod.f90): hold the (n1, n2, n3)
 scalar data over fractional coordinates and interpolate value, gradient
-and Hessian at arbitrary points. The port carries the Gaussian cube
-reader and the nearest / trilinear / tricubic interpolants; the other
-file formats, the trispline / tristar modes and the FFT-derived grids
-raise NotImplementedError.
+and Hessian at arbitrary points, and produce the FFT-derived grids
+(laplacian, |grad|, Hessian diagonals, Poisson potential). The port
+carries the Gaussian cube reader and all five interpolation modes; the
+other file formats raise NotImplementedError.
 """
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..config import FDTYPE, resolve_device
-from ..ops.interp import interp_batch
+from ..ops import fft as fftops
+from ..ops.interp import interp_batch, sym6_to_mat
 
 MODES = ("nearest", "trilinear", "tricubic", "trispline", "tristar")
 DEFAULT_MODE = "tricubic"  # reference mode_default (src/grid3mod.f90:88)
@@ -53,6 +54,9 @@ def parse_cube_header(path: str):
 class Grid3:
     f: torch.Tensor                     # (n1,n2,n3) device tensor
     mode: str = DEFAULT_MODE
+    # lazy coefficient grids of the trispline and tristar modes
+    _spl: torch.Tensor = field(default=None, repr=False, compare=False)
+    _star_c2: torch.Tensor = field(default=None, repr=False, compare=False)
 
     @property
     def n(self):
@@ -67,6 +71,48 @@ class Grid3:
         if mode not in MODES:
             raise ValueError(f"unknown interpolation mode {mode}")
         self.mode = mode
+        # the coefficient grids of a mode that is left are released (8
+        # and 3 times the grid's size); coming back builds them again
+        if mode != "trispline":
+            self._spl = None
+        if mode != "tristar":
+            self._star_c2 = None
+
+    @property
+    def spline_coeffs(self):
+        """Lazy tensor-product spline coefficient grids (trispline),
+        (8, n1, n2, n3) on the grid's device."""
+        if self._spl is None:
+            from ..ops.trispline import spline_coeffs
+
+            self._spl = spline_coeffs(self.f)
+        return self._spl
+
+    @property
+    def star_c2(self):
+        """Lazy per-axis curvature grids of the reference star scheme
+        (init_trispline, src/grid3mod@proc.f90:2167-2274)."""
+        if self._star_c2 is None:
+            from ..ops.trispline import star_c2
+
+            self._star_c2 = star_c2(self.f)
+        return self._star_c2
+
+    def interp_soa(self, xfracT, nder: int = 2):
+        """Batch-last interpolation at fractional points (3, N) in the
+        grid's mode: (y (N,), yp (3, N), ypp6 (6, N))."""
+        if self.mode == "trispline":
+            from ..ops.trispline import trispline_soa
+
+            return trispline_soa(self.spline_coeffs, xfracT, nder=nder)
+        if self.mode == "tristar":
+            from ..ops.trispline import trispline_star_soa
+
+            return trispline_star_soa(self.f, self.star_c2, xfracT,
+                                      nder=nder)
+        from ..ops.interp import interp_soa
+
+        return interp_soa(self.f, xfracT, mode=self.mode, nder=nder)
 
     def interp(self, xfrac, nder: int = 2):
         """Batched interpolation at fractional points (N,3).
@@ -74,10 +120,27 @@ class Grid3:
         Returns (y, yp, ypp) with derivatives w.r.t. fractional coords
         (scaled by n), reference convention (src/grid3mod@proc.f90:1043).
         """
-        check_mode_ported(self.mode)
-        x = torch.as_tensor(xfrac, dtype=self.f.dtype, device=self.f.device)
-        return interp_batch(self.f, torch.atleast_2d(x), mode=self.mode,
-                            nder=nder)
+        x = torch.atleast_2d(torch.as_tensor(xfrac, dtype=self.f.dtype,
+                                             device=self.f.device))
+        if self.mode in ("trispline", "tristar"):
+            y, ypT, ypp6 = self.interp_soa(x.T, nder=nder)
+            return y, ypT.T, sym6_to_mat(ypp6)
+        return interp_batch(self.f, x, mode=self.mode, nder=nder)
+
+    # ------------------------------------------------------------------
+    # FFT-derived grids (reference ifformat_as_* computed fields)
+    # ------------------------------------------------------------------
+    def laplacian(self, m_x2c) -> "Grid3":
+        return Grid3(fftops.laplacian(self.f, m_x2c))
+
+    def gradrho(self, m_x2c) -> "Grid3":
+        return Grid3(fftops.gradrho(self.f, m_x2c))
+
+    def hxx(self, m_x2c, ix: int) -> "Grid3":
+        return Grid3(fftops.hxx(self.f, m_x2c, ix))
+
+    def pot(self, m_x2c, isry: bool = False) -> "Grid3":
+        return Grid3(fftops.pot(self.f, m_x2c, isry=isry))
 
     @classmethod
     def from_file(cls, path: str, fmt: str | None = None,
@@ -102,13 +165,6 @@ class Grid3:
         vals = data[: int(np.prod(n))].reshape(tuple(n))
         return cls(torch.as_tensor(vals, dtype=FDTYPE,
                                    device=resolve_device(device)))
-
-
-def check_mode_ported(mode: str):
-    if mode in ("trispline", "tristar"):
-        raise NotImplementedError(
-            f"interpolation mode {mode} waits for ops/trispline.py, which "
-            "is not ported to the torch package yet")
 
 
 def detect_grid_format(path: str) -> str:

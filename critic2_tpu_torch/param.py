@@ -56,3 +56,11 @@ def cutrad(z: int) -> float:
     if 1 <= z <= len(t):
         return float(t[z - 1])
     return 0.0
+
+
+def covalent_radius(z: int) -> float:
+    """Covalent radius in bohr (role of reference src/param.F90 atmcov)."""
+    t = _load_tables()["atmcov"]
+    if 1 <= z <= len(t):
+        return float(t[z - 1])
+    return 0.0

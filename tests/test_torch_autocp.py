@@ -30,6 +30,10 @@ from critic2_tpu_torch.convert import (cplist_to_arrays,
                                        crystal_from_arrays,
                                        crystal_to_arrays, system_from_arrays)
 
+# the inputs are tiny: one intra-op thread a process, so that parallel
+# test workers do not fight over the cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 TOL_POS = 1e-9       # bohr
 

@@ -12,6 +12,10 @@ import torch
 from critic2_tpu.ops import eig3 as jeig
 from critic2_tpu_torch.ops import eig3 as teig
 
+# the inputs are tiny: one intra-op thread a process, so that parallel
+# test workers do not fight over the cores
+torch.set_num_threads(1)
+
 TOL = 1e-12
 
 

@@ -22,6 +22,10 @@ from critic2_tpu_torch.fields.field import Field
 from critic2_tpu_torch.fields.grid3 import Grid3
 from critic2_tpu_torch.ops import interp as tinterp
 
+# the inputs are tiny: one intra-op thread a process, so that parallel
+# test workers do not fight over the cores
+torch.set_num_threads(1)
+
 SHAPE = (12, 15, 18)
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 

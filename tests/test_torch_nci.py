@@ -29,6 +29,10 @@ from critic2_tpu_torch.analysis.nci import nciplot as tnci
 from critic2_tpu_torch.convert import crystal_to_arrays, system_from_arrays
 from critic2_tpu_torch.io.cube import write_cube as twrite_cube
 
+# the inputs are tiny: one intra-op thread a process, so that parallel
+# test workers do not fight over the cores
+torch.set_num_threads(1)
+
 CPU = "cpu"
 NSTEP = (15, 13, 11)     # each coprime to its grid axis (16, 18, 20)
 TOL64 = 1e-10

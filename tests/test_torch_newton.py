@@ -20,6 +20,10 @@ from critic2_tpu_torch.fields.field import Field
 from critic2_tpu_torch.fields.grid3 import Grid3
 from critic2_tpu_torch.ops import newton as tnewton
 
+# the inputs are tiny: one intra-op thread a process, so that parallel
+# test workers do not fight over the cores
+torch.set_num_threads(1)
+
 A = 6.0
 N = 16
 TOL_POS = 1e-10      # bohr

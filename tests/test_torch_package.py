@@ -13,12 +13,22 @@ import critic2_tpu_torch
 from critic2_tpu_torch import System, config
 from critic2_tpu_torch.analysis.autocp import (Seed, autocp, gen_seeds,
                                                makegraph)
+from critic2_tpu_torch.analysis.bader import bader_integrate
+from critic2_tpu_torch.analysis.bisect import (basin_integral, bisect_basin,
+                                               sphere_integral)
+from critic2_tpu_torch.analysis.flux import fluxprint
+from critic2_tpu_torch.analysis.integration import intgrid
 from critic2_tpu_torch.analysis.nci import nciplot
 from critic2_tpu_torch.analysis.yt import yt_integrate
 from critic2_tpu_torch.convert import (crystal_from_arrays,
                                        crystal_to_arrays,
                                        system_from_arrays)
 from critic2_tpu_torch.ops import _ext
+from critic2_tpu_torch.ops.ode import trace_paths
+
+# the inputs are tiny: one intra-op thread a process, so that parallel
+# test workers do not fight over the cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(critic2_tpu_torch.__file__)
@@ -49,7 +59,7 @@ def _imported_roots(path):
 
 def test_no_jax_or_jax_package_import_anywhere():
     mods = list(_modules())
-    assert len(mods) >= 24
+    assert len(mods) >= 36
     assert not [p for p in mods if "_build" in p]
     bad = [(os.path.relpath(p, ROOT), r) for p in mods
            for r in _imported_roots(p) if r in FORBIDDEN]
@@ -62,6 +72,17 @@ def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys\n"
             "import critic2_tpu_torch\n"
             "import critic2_tpu_torch.analysis.autocp\n"
+            "import critic2_tpu_torch.analysis.bader\n"
+            "import critic2_tpu_torch.analysis.bisect\n"
+            "import critic2_tpu_torch.analysis.flux\n"
+            "import critic2_tpu_torch.analysis.surface\n"
+            "import critic2_tpu_torch.io.graphics\n"
+            "import critic2_tpu_torch.ops.fft\n"
+            "import critic2_tpu_torch.ops.lebedev\n"
+            "import critic2_tpu_torch.ops.ode\n"
+            "import critic2_tpu_torch.ops.quadrature\n"
+            "import critic2_tpu_torch.ops.rlm\n"
+            "import critic2_tpu_torch.ops.trispline\n"
             "import critic2_tpu_torch.analysis.integration\n"
             "import critic2_tpu_torch.analysis.nci\n"
             "import critic2_tpu_torch.analysis.yt\n"
@@ -116,7 +137,9 @@ def test_build_directory_is_not_scanned(tmp_path, monkeypatch):
     assert [os.path.basename(p) for p in _modules()] == ["ok.py"]
 
 
-@pytest.mark.parametrize("entry", ["autocp", "nciplot", "grd"])
+@pytest.mark.parametrize("entry", ["autocp", "nciplot", "grd", "makegraph",
+                                   "bader", "bisect", "sphere_integral",
+                                   "fluxprint"])
 def test_grid_entry_points_raise_without_cuda(monkeypatch, entry):
     """With no device given, the grid main path wants CUDA and says so;
     nothing drops to the CPU."""
@@ -128,6 +151,16 @@ def test_grid_entry_points_raise_without_cuda(monkeypatch, entry):
             autocp(System(crystal=c))
         elif entry == "nciplot":
             nciplot(System(crystal=c))
+        elif entry == "makegraph":
+            makegraph(System(crystal=c), None)
+        elif entry == "bader":
+            bader_integrate(c, grid)
+        elif entry == "bisect":
+            bisect_basin(System(crystal=c), [0, 0, 0], np.eye(3))
+        elif entry == "sphere_integral":
+            sphere_integral(System(crystal=c), [0, 0, 0], 1.0)
+        elif entry == "fluxprint":
+            fluxprint(System(crystal=c), np.ones((1, 3)))
         else:
             system_from_arrays(**crystal_to_arrays(c), grid=grid).ref.grd(
                 np.zeros((1, 3)))
@@ -143,25 +176,44 @@ def _grid_system(mode=None):
 
 
 @pytest.mark.parametrize("what, call", [
-    ("ops/trispline.py",
-     lambda: _grid_system("trispline").ref.grd(np.zeros((1, 3)))),
-    ("ops/trispline.py",
-     lambda: _grid_system("tristar").ref.eval_fn()),
-    ("ops/trispline.py",
-     lambda: _grid_system("tristar").ref.grid.interp(np.zeros((1, 3)))),
     ("analysis/mesh.py",
      lambda: gen_seeds(_crystal(), [Seed(typ="mesh")])),
-    ("ops/ode.py", lambda: makegraph(_grid_system(), None)),
     ("crystal/fragment.py",
      lambda: nciplot(_grid_system(), molmotif=True)),
     ("crystal/spgs.py", lambda: _crystal().spg_name()),
     ("crystal/wyckoff.py", lambda: _crystal().wyckoffs()),
     ("fields/wfn.py", lambda: autocp(_wfn_system())),
-], ids=["trispline-grd", "tristar-eval_fn", "tristar-interp", "mesh-seed",
-        "makegraph", "molmotif", "spg_name", "wyckoffs", "wfn-autocp"])
+    ("fields/wfn.py", lambda: makegraph(_wfn_system(), None)),
+    ("fields/wfn.py",
+     lambda: trace_paths(_grid_system().ref.eval_fn(),
+                         torch.ones((1, 3), dtype=torch.float64),
+                         escape=(np.zeros(3), 1.0))),
+    ("arithmetic.py",
+     lambda: sphere_integral(_grid_system(), [0, 0, 0], 1.0, expr="$1")),
+    ("arithmetic.py",
+     lambda: basin_integral(_grid_system(), [0, 0, 0], expr="$1")),
+    ("arithmetic.py", lambda: intgrid(_grid_system(), discard="$1 < 0")),
+    ("crystal/fragment.py",
+     lambda: _grid_system().load_field_as("promolecular",
+                                          fragment="frag.xyz")),
+], ids=["mesh-seed", "molmotif", "spg_name", "wyckoffs", "wfn-autocp",
+        "wfn-makegraph", "ode-escape", "sphere_integral-expr",
+        "basin_integral-expr", "intgrid-discard", "fragment-file"])
 def test_unported_branches_name_what_they_wait_for(what, call):
     with pytest.raises(NotImplementedError, match=what):
         call()
+
+
+@pytest.mark.parametrize("mode", ["trispline", "tristar"])
+def test_spline_modes_no_longer_raise(mode):
+    s = _grid_system(mode)
+    x = np.array([[0.3, 1.1, 2.7]])
+    y, yp, ypp = s.ref.grid.interp(x / 6.0)
+    res = s.ref.grd(x)
+    f, gf, h6 = s.ref.eval_fn()(torch.as_tensor(x.T))
+    assert torch.equal(res.f, y) and torch.allclose(f, y, rtol=1e-12)
+    assert tuple(yp.shape) == (1, 3) and tuple(ypp.shape) == (1, 3, 3)
+    assert tuple(gf.shape) == (3, 1) and tuple(h6.shape) == (6, 1)
 
 
 def _wfn_system():

@@ -12,6 +12,7 @@ import torch
 from critic2_tpu import System as JSystem
 from critic2_tpu.analysis import integration as jint
 from critic2_tpu.analysis.autocp import autocp as jautocp
+from critic2_tpu.analysis.autocp import makegraph as jmakegraph
 from critic2_tpu.analysis.nci import nciplot as jnciplot
 from critic2_tpu.crystal.cell import m_x2c_from_cellpar
 from critic2_tpu.crystal.crystal import Crystal, Species
@@ -20,15 +21,20 @@ from critic2_tpu.fields.field import Field as JField
 from critic2_tpu.fields.grid3 import Grid3 as JGrid3
 from critic2_tpu_torch import System
 from critic2_tpu_torch.analysis import integration as tint
-from critic2_tpu_torch.analysis.autocp import autocp
+from critic2_tpu_torch.analysis.autocp import autocp, makegraph
 from critic2_tpu_torch.analysis.nci import nciplot
-from critic2_tpu_torch.convert import (cplist_to_arrays,
+from critic2_tpu_torch.convert import (bader_to_arrays, cplist_to_arrays,
                                        crystal_from_arrays,
                                        crystal_to_arrays,
+                                       integration_to_arrays,
                                        system_from_arrays)
 from critic2_tpu_torch.fields import promol as tpromol
 from critic2_tpu_torch.fields.grid1 import atomic_density_at
 from critic2_tpu_torch.fields.grid3 import Grid3
+
+# the inputs are tiny: one intra-op thread a process, so that parallel
+# test workers do not fight over the cores
+torch.set_num_threads(1)
 
 CPU = "cpu"
 
@@ -112,7 +118,7 @@ def test_intgrid_extra_fields_and_options_match_jax(nacl32):
                                [r.extra["sq"] for r in rj.rows],
                                rtol=1e-10, atol=0)
     with pytest.raises(NotImplementedError):
-        tint.intgrid(ts, method="bader")
+        tint.intgrid(ts, mesh=object())
     with pytest.raises(NotImplementedError):
         tint.intgrid(ts, discard="rho")
     with pytest.raises(ValueError):
@@ -286,3 +292,60 @@ def test_grid_main_path_matches_jax():
         [(r.name, r.atom) for r in rj.rows]
     np.testing.assert_allclose(rt.charges, rj.charges, rtol=0, atol=1e-10)
     np.testing.assert_allclose(rt.volumes, rj.volumes, rtol=0, atol=1e-10)
+
+
+def test_spline_graph_and_bader_path_matches_jax():
+    """The spline, graph and Bader path as a whole: structure -> grid in
+    trispline mode -> autocp -> makegraph -> intgrid(method="bader") ->
+    multipoles, against the same calls of the JAX package on the smooth
+    model density above.
+    The CP graph is compared as a set of (type, ends) per orbit, the
+    charges to 1e-10 e, the multipoles to 1e-8."""
+    n = 24
+    c = Crystal(m_x2c=m_x2c_from_cellpar([7.0] * 3, [90] * 3),
+                x_frac=np.array([[2.5 / n] * 3, [2.5 / n + 0.5] * 3]),
+                species_of=np.array([0, 1]),
+                species=[Species("Na", 11), Species("Cl", 17)])
+    x = np.stack(np.meshgrid(*[np.arange(n) / n] * 3, indexing="ij"), -1)
+    g = np.full((n, n, n), 1e-3)
+    for site, amp in zip(c.x_frac, (1.0, 1.6)):
+        d = x - site
+        d -= np.rint(d)
+        g += amp * np.exp(-((d @ c.m_x2c.T) ** 2).sum(-1) / 1.5 ** 2)
+    js = JSystem.from_structure(c)
+    js.load_field(JField.from_grid(c, JGrid3(jnp.asarray(g)), name="rho"))
+    js.ref.set_options(interp="trispline")
+    ts = system_from_arrays(**crystal_to_arrays(c), grid=g, name="rho",
+                            device=CPU, interp="trispline")
+
+    jcpl, tcpl = jautocp(js), autocp(ts)
+    assert tcpl.counts() == jcpl.counts() and tcpl.poincare_hopf() == 0
+    jmakegraph(js, jcpl)
+    makegraph(ts, tcpl)
+    ja, ta = cplist_to_arrays(jcpl), cplist_to_arrays(tcpl)
+    for key in ("typ", "mult", "name"):
+        np.testing.assert_array_equal(ta[key], ja[key])
+    # each CP's two ends as an unordered pair (the take-off vector's sign
+    # orders them); every bond path ends at two nuclei
+    np.testing.assert_array_equal(np.sort(ta["ipath"], axis=1),
+                                  np.sort(ja["ipath"], axis=1))
+    bcp = ta["typ"] == -1
+    assert bcp.any() and (ta["ipath"][bcp] >= 0).all()
+    assert all(tcpl.cps[i].isnuc for i in ta["ipath"][bcp].ravel())
+    np.testing.assert_allclose(np.sort(ta["brpathlen"], axis=1),
+                               np.sort(ja["brpathlen"], axis=1), rtol=1e-5)
+
+    for bader_method in ("neargrid", "ongrid"):
+        rj = jint.intgrid(js, method="bader", bader_method=bader_method)
+        rt = tint.intgrid(ts, method="bader", bader_method=bader_method)
+        bj, bt = bader_to_arrays(rj.decomp), bader_to_arrays(rt.decomp)
+        np.testing.assert_array_equal(bt["labels"], bj["labels"])
+        np.testing.assert_array_equal(bt["iattr"], bj["iattr"])
+        ij, it = integration_to_arrays(rj), integration_to_arrays(rt)
+        np.testing.assert_array_equal(it["name"], ij["name"])
+        np.testing.assert_allclose(it["pop"], ij["pop"], rtol=0, atol=1e-10)
+        np.testing.assert_allclose(it["volume"], ij["volume"], rtol=0,
+                                   atol=1e-10)
+    np.testing.assert_allclose(tint.multipoles(ts, rt, lmax=2),
+                               jint.multipoles(js, rj, lmax=2), rtol=0,
+                               atol=1e-8)

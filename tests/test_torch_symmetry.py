@@ -4,12 +4,17 @@ the same arrays, in the same order.
 """
 import numpy as np
 import pytest
+import torch
 
 from critic2_tpu.crystal.cell import m_x2c_from_cellpar
 from critic2_tpu.crystal.crystal import Crystal, Species
 from critic2_tpu_torch import param as tparam
 from critic2_tpu_torch.convert import crystal_from_arrays, crystal_to_arrays
 from critic2_tpu_torch.crystal.symmetry import lattice_point_group
+
+# the inputs are tiny: one intra-op thread a process, so that parallel
+# test workers do not fight over the cores
+torch.set_num_threads(1)
 
 FCC = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]],
                dtype=float)

@@ -14,6 +14,10 @@ from critic2_tpu.crystal.crystal import Crystal, Species
 from critic2_tpu_torch.analysis import yt as tyt
 from critic2_tpu_torch.convert import crystal_from_arrays, crystal_to_arrays
 
+# the inputs are tiny: one intra-op thread a process, so that parallel
+# test workers do not fight over the cores
+torch.set_num_threads(1)
+
 
 def _port(c):
     return crystal_from_arrays(**crystal_to_arrays(c))

@@ -19,6 +19,10 @@ from critic2_tpu_torch.analysis import yt as tyt
 from critic2_tpu_torch.convert import crystal_from_arrays
 from critic2_tpu_torch.ops import yt_pass as ops
 
+# the inputs are tiny: one intra-op thread a process, so that parallel
+# test workers do not fight over the cores
+torch.set_num_threads(1)
+
 CELLS = {"cubic": ([8.0, 8.0, 8.0], [90, 90, 90]),         # K = 6
          "triclinic": ([8.0, 7.0, 6.5], [75, 80, 70])}    # K = 14
 SHAPE = (10, 9, 8)
