@@ -73,6 +73,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      makegraph on the tricubic CP list - every bond path ends at two
      nuclei, Na-Cl connected, attempts, the tracer's wall and kernel
      launches per attempt;
+  8. qtree (plain PyTorch ops; runs before phase 7's gradient-path parts,
+     whose launch counting switches the profiler on): maxl=4,
+     sphfactor=0.9 on the same 256^3 field, |sum pops - sum YT| <=
+     1e-3 sum YT + 0.3 e, wall split into traces, cubature, boundary and
+     sphere integrals; the exact-half two-Gaussian crystal at 48^3, maxl=5,
+     max |pop - half| < 2e-5 e; maxl=2 on a 48^3 two-Gaussian field, card
+     against CPU (same ntraced, pops to 1e-9 e);
+  9. the molecular-wavefunction path on H2/STO-3G (molden text below) and
+     its 8x8x6 tile (768 atoms, 2,304 primitives, 384 MOs): NELEC of the
+     monomer on the ultra mesh; screened against dense GTO evaluation at
+     65,536 points in the cell (rho 1e-12 relative, derivatives 1e-10),
+     card against CPU on 4,096 points (1e-12), f32 against f64; NELEC of
+     the assembly on the 7.0M-point normal mesh (KNN weights), build and
+     sweep timed apart; autocp through the screened Newton (PH 1, 768
+     maxima at the nuclei, a bond CP within 0.01 bohr of every molecule's
+     midpoint, |grad| < 1e-10) and on a 2x2x2 tile against the CPU
+     (1e-9 bohr); makegraph through trace_paths_screened (every
+     intramolecular bond path ends at its molecule's nuclei); the
+     screened tracer against the dense one on 64 seeds (status, termid,
+     end points to 1e-8); last, launches per BS23 attempt of both new
+     tracers;
 then one JSON line of kernel records and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -1155,6 +1176,46 @@ def kernels_launched(fn) -> int:
                if e.device_type == DeviceType.CUDA)
 
 
+def counting_attempts():
+    """(counter dict, restore()) with ode._attempt wrapped to count BS23
+    attempts and lane-attempts until restore() is called."""
+    from critic2_tpu_torch.ops import ode
+
+    cnt = {"attempts": 0, "lane_attempts": 0}
+    attempt = ode._attempt
+
+    def counted(su, st):
+        cnt["attempts"] += 1
+        cnt["lane_attempts"] += st[0].shape[1]
+        return attempt(su, st)
+
+    ode._attempt = counted
+
+    def restore():
+        ode._attempt = attempt
+
+    return cnt, restore
+
+
+def launches_per_attempt(trace):
+    """(kernel launches of one BS23 attempt, launches, attempts):
+    trace(mstep) for 16 and for 48 attempts under the profiler, the
+    difference over the attempts between (set-up and the final scatter
+    cancel)."""
+    nk, na = [], []
+    cnt, restore = counting_attempts()
+    try:
+        for mstep in (16, 48):
+            cnt["attempts"] = 0
+            nk.append(kernels_launched(lambda: trace(mstep)))
+            na.append(cnt["attempts"])
+    finally:
+        restore()
+    check(na[0] == 16 and na[1] > 16, f"the profiled traces took {na} "
+          "attempts")
+    return (nk[1] - nk[0]) / (na[1] - na[0]), nk, na
+
+
 def graph_phase(s, cpl):
     """Phase 7f: makegraph on the tricubic CP list of the grid phase."""
     import numpy as np
@@ -1165,24 +1226,21 @@ def graph_phase(s, cpl):
 
     # the stepper's BS23 attempt and the tracer, wrapped for this call:
     # attempts counted, the tracer's wall summed
-    cnt = {"attempts": 0, "lane_attempts": 0, "trace_s": 0.0}
-    attempt, trace = ode._attempt, ode.trace_paths
-
-    def counted(su, st):
-        cnt["attempts"] += 1
-        cnt["lane_attempts"] += st[0].shape[1]
-        return attempt(su, st)
+    cnt, restore = counting_attempts()
+    cnt["trace_s"] = 0.0
+    trace = ode.trace_paths
 
     def trace_timed(*a, **kw):
         out, dt = wall_s(lambda: trace(*a, **kw))
         cnt["trace_s"] += dt
         return out
 
-    ode._attempt, ode.trace_paths = counted, trace_timed
+    ode.trace_paths = trace_timed
     try:
         _, t = wall_s(lambda: makegraph(s, cpl))
     finally:
-        ode._attempt, ode.trace_paths = attempt, trace
+        ode.trace_paths = trace
+        restore()
     made = dict(cnt)                # makegraph's own counts
     bcps = [cp for cp in cpl.cps if cp.typ == -1]
     rcps = [cp for cp in cpl.cps if cp.typ == 1]
@@ -1198,35 +1256,23 @@ def graph_phase(s, cpl):
     check(("Cl", "Na") in pairs, f"makegraph: no Na-Cl bond path in {pairs}")
     nring = sum(min(cp.ipath) >= 0 for cp in rcps)
 
-    # kernel launches of one attempt: the bond paths for one 16-attempt
-    # segment and for up to three under the profiler, the difference over
-    # the attempts between; the set-up (targets, first evaluation) and the
-    # final scatter cancel, no batch this small is packed
+    # kernel launches of one attempt on the bond paths (no batch this
+    # small is packed)
     seeds = torch.as_tensor(
         np.array([cp.r + sg * 1e-2 * cp.brvec for cp in bcps
                   for sg in (1.0, -1.0)]), device=s.ref.device)
     fn = s.ref.eval_fn(nder=2)
     tgt = s.ref._nucleus_images()
-    nk, na = [], []
-    ode._attempt = counted
-    try:
-        for mstep in (16, 48):
-            cnt["attempts"] = 0
-            nk.append(kernels_launched(lambda: trace(
-                fn, seeds, iup=1, targets=tgt, rterm=np.full(len(tgt), 0.1),
-                mstep=mstep)))
-            na.append(cnt["attempts"])
-    finally:
-        ode._attempt = attempt
-    check(na[0] == 16 and na[1] > 16, f"the profiled traces took {na} "
-          "attempts")
+    per, nk, na = launches_per_attempt(lambda mstep: trace(
+        fn, seeds, iup=1, targets=tgt, rterm=np.full(len(tgt), 0.1),
+        mstep=mstep))
     cnt = made
     out = {"wall_s": t, "trace_s": cnt["trace_s"],
            "attempts": cnt["attempts"],
            "lane_attempts": cnt["lane_attempts"], "paths": 2 * (len(bcps)
                                                                + len(rcps)),
            "profiled_attempts": na, "profiled_launches": nk,
-           "launches_per_attempt": (nk[1] - nk[0]) / (na[1] - na[0]),
+           "launches_per_attempt": per,
            "trace_ms_per_attempt": cnt["trace_s"] * 1e3 / cnt["attempts"]}
     log(f"makegraph on the {N_SLICE}^3 tricubic CP list: {len(bcps)} bond and "
         f"{len(rcps)} ring points, {out['paths']} paths, wall {t:.3f} s, of "
@@ -1377,6 +1423,338 @@ def path_phase(sl, grid_out, profile):
     return out
 
 
+H2_MOLDEN = """[Molden Format]
+[Atoms] AU
+H 1 1 0.0 0.0 0.0
+H 2 1 0.0 0.0 1.4
+[GTO]
+1 0
+ s 3 1.00
+  3.42525091 0.15432897
+  0.62391373 0.53532814
+  0.16885540 0.44463454
+
+2 0
+ s 3 1.00
+  3.42525091 0.15432897
+  0.62391373 0.53532814
+  0.16885540 0.44463454
+
+[MO]
+Sym= A1
+Ene= -0.578
+Spin= Alpha
+Occup= 2.0
+  1 0.54893404
+  2 0.54893404
+Sym= A2
+Ene= 0.671
+Spin= Alpha
+Occup= 0.0
+  1 1.21146407
+  2 -1.21146407
+"""
+TILE = (8, 8, 6)     # 768 atoms, 2,304 primitives, 384 MOs
+
+
+def two_gauss_system(dev, n, amp2, alpha2, a=8.0):
+    """The two-Gaussian crystal of tests/test_qtree.py: Gaussians at
+    (0,0,0) (amplitude 2, exponent 0.8) and (1/2,1/2,1/2), on an n^3
+    grid, field 1 of a system on dev."""
+    import numpy as np
+
+    from critic2_tpu_torch.convert import system_from_arrays
+
+    ii, jj, kk = np.meshgrid(*[np.arange(n) / n] * 3, indexing="ij")
+    xf = np.stack([ii, jj, kk], axis=-1)
+
+    def gauss(center, amp, alpha):
+        d = xf - center
+        d -= np.round(d)
+        return amp * np.exp(-alpha * ((d * a) ** 2).sum(-1))
+
+    g = (gauss(np.zeros(3), 2.0, 0.8) + gauss(np.full(3, 0.5), amp2, alpha2)
+         + 1e-3)
+    return system_from_arrays(np.diag([a] * 3),
+                              [[0, 0, 0], [0.5, 0.5, 0.5]], [0, 1],
+                              [("Na", 11), ("Cl", 17)], grid=g, device=dev)
+
+
+def qtree_phase(sl, dev):
+    """Phase 8: qtree (config 5) on the slice's 256^3 field, the exact-half
+    case at 48^3 and maxl=2 card against CPU."""
+    import numpy as np
+
+    from critic2_tpu_torch.analysis.qtree import qtree_integrate
+
+    s = sl["system"]
+    stats = {}
+    cnt, restore = counting_attempts()
+    try:
+        r, t = wall_s(lambda: qtree_integrate(
+            s, maxl=4, sphfactor=0.9, block=1 << 16, stats=stats))
+    finally:
+        restore()
+    q_yt = sum(row.pop for row in sl["intres"].rows)
+    dq = abs(float(r.pops.sum()) - q_yt)
+    check(np.isfinite(r.pops).all() and (r.pops > 0).all()
+          and (r.volumes > 0).all(), f"qtree 256^3: pops {r.pops}")
+    check(dq <= 1e-3 * q_yt + 0.3,
+          f"qtree 256^3: |sum pops - sum YT| = {dq:.4f} e")
+    out = {"wall_s": t, "ntraced": r.ntraced, "nrefined": r.nrefined,
+           "nlevels": r.nlevels, **cnt, **stats,
+           "pops": r.pops.tolist(), "volumes": r.volumes.tolist(),
+           "sum_pops": float(r.pops.sum()), "sum_yt": q_yt, "dq_e": dq}
+    log(f"qtree {N_SLICE}^3 maxl=4 sphfactor=0.9: wall {t:.3f} s = traces "
+        f"{stats['trace_s']:.3f} + Keast/corner cubature "
+        f"{stats['cubature_s']:.3f} + boundary split "
+        f"{stats['boundary_s']:.3f} + sphere integrals "
+        f"{stats['sphere_s']:.3f} (+ host rest); ntraced {r.ntraced}, "
+        f"nrefined {r.nrefined}, {cnt['attempts']} BS23 attempts "
+        f"({cnt['lane_attempts']} lane-attempts); sum pops "
+        f"{r.pops.sum():.6f} e against sum YT {q_yt:.6f} e (|d| {dq:.3e})")
+    log(r.table())
+
+    sh = two_gauss_system(dev, 48, 2.0, 0.8)
+    rh, th = wall_s(lambda: qtree_integrate(sh, maxl=5))
+    half = rh.pops.sum() / 2
+    dh = float(np.abs(rh.pops - half).max())
+    check(dh < 2e-5, f"qtree exact half: max |pop - half| = {dh:.3e} e")
+    out.update(half_wall_s=th, half_dev_e=dh, half_ntraced=rh.ntraced)
+    log(f"qtree exact-half two-Gaussian 48^3 maxl=5: wall {th:.3f} s, "
+        f"ntraced {rh.ntraced}, max |pop - half| {dh:.3e} e")
+
+    sc = two_gauss_system(dev, 48, 1.0, 0.6)
+    scpu = two_gauss_system("cpu", 48, 1.0, 0.6)
+    r2, t2 = wall_s(lambda: qtree_integrate(sc, maxl=2))
+    t0 = time.perf_counter()
+    r2c = qtree_integrate(scpu, maxl=2)
+    t2c = time.perf_counter() - t0
+    dp = float(np.abs(r2.pops - r2c.pops).max())
+    check(r2.ntraced == r2c.ntraced and r2.nrefined == r2c.nrefined,
+          f"qtree maxl=2 card vs CPU: ntraced {r2.ntraced} / {r2c.ntraced}")
+    check(dp <= 1e-9, f"qtree maxl=2 card vs CPU: pops {dp:.3e} e")
+    out.update(cpu_check_wall_s=t2, cpu_check_cpu_s=t2c, cpu_check_dp=dp)
+    log(f"qtree maxl=2 two-Gaussian 48^3, card vs CPU: ntraced "
+        f"{r2.ntraced} both, max |d pop| {dp:.3e} e (card {t2:.3f} s, CPU "
+        f"{t2c:.3f} s)")
+    return out
+
+
+def wfn_phase(dev):
+    """Phase 9: the molecular-wavefunction path on H2/STO-3G and its
+    8x8x6 tile."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch import System
+    from critic2_tpu_torch.analysis.autocp import autocp, makegraph
+    from critic2_tpu_torch.analysis.mesh import becke_mesh
+    from critic2_tpu_torch.analysis.molcalc import (molcalc_integral,
+                                                    molcalc_nelec)
+    from critic2_tpu_torch.convert import cplist_to_arrays
+    from critic2_tpu_torch.fields.wfn import Wavefunction
+    from critic2_tpu_torch.ops.ode import trace_paths, trace_paths_screened
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    path = os.path.join(tmp, "h2.molden")
+    with open(path, "w") as fh:
+        fh.write(H2_MOLDEN)
+
+    # the monomer: NELEC on the ultra mesh (f64 weights)
+    s1 = System.from_structure(path, device=dev)
+    s1.load_field(path)
+    m1, tb1 = wall_s(lambda: becke_mesh(s1.crystal, "ultra", device=dev))
+    n1, ts1 = wall_s(lambda: molcalc_integral(s1, "$1", lvl="ultra",
+                                              weights_dtype=np.float64))
+    check(abs(n1 - 2.0) < 1e-5, f"NELEC H2 ultra {n1}")
+    out["monomer"] = {"mesh_points": m1.n, "mesh_build_s": tb1,
+                      "sweep_s": ts1, "nelec": n1, "err_e": n1 - 2.0}
+    log(f"H2/STO-3G NELEC, ultra mesh ({m1.n} points): {n1:.12f} e, error "
+        f"{n1 - 2.0:.3e} e; mesh build {tb1:.3f} s, density sweep + sum "
+        f"{ts1:.3f} s")
+
+    # the assembly
+    tile = Wavefunction.from_file(path).tile(TILE)
+    s = System.from_wavefunction(tile, device=dev)
+    w = s.ref.wfn
+    nat = len(w.atz)
+    ncopy = TILE[0] * TILE[1] * TILE[2]
+    check((nat, w.npri, w.nmo) == (2 * ncopy, 6 * ncopy, ncopy)
+          and w.npri >= w.SCREEN_NPRI, f"tile {nat}, {w.npri}, {w.nmo}")
+    c = s.crystal
+    rng = np.random.default_rng(7)
+    pts = rng.random((65536, 3)) @ np.asarray(c.m_x2c).T
+    xT = torch.as_tensor(pts.T.copy(), dtype=torch.float64, device=dev)
+    scr, _ = wall_s(lambda: w.rho_eval_screened(xT, nder=2))
+    scr, t_scr = wall_s(lambda: w.rho_eval_screened(xT, nder=2))
+    den, _ = wall_s(lambda: w.rho_eval_dense(xT, nder=2))
+    den, t_den = wall_s(lambda: w.rho_eval_dense(xT, nder=2))
+    e_rho = float((scr[0] - den[0]).abs().max() / den[0].abs().max())
+    e_g = float((scr[1] - den[1]).abs().max())
+    e_h = float((scr[2] - den[2]).abs().max())
+    check(e_rho <= 1e-12 and e_g <= 1e-10 and e_h <= 1e-10,
+          f"screened vs dense: rho {e_rho:.3e}, grad {e_g:.3e}, "
+          f"hessian {e_h:.3e}")
+    f32, t_f32 = wall_s(lambda: w.rho_eval_dense(xT, nder=2,
+                                                 dtype=torch.float32))
+    f32, t_f32 = wall_s(lambda: w.rho_eval_dense(xT, nder=2,
+                                                 dtype=torch.float32))
+    e32 = float((f32[0] - den[0]).abs().max() / den[0].abs().max())
+    check(all(bool(torch.isfinite(v).all()) for v in f32),
+          "f32 dense: not finite")
+    cpu = w.rho_eval_soa(xT[:, :4096].cpu(), nder=2)
+    e_cpu = max(float((a[..., :4096].cpu() - b).abs().max()
+                      / b.abs().max()) for a, b in zip(scr, cpu))
+    check(e_cpu <= 1e-12, f"screened card vs CPU: {e_cpu:.3e}")
+    out["gto"] = {"points": 65536, "screened_ms": t_scr * 1e3,
+                  "dense_ms": t_den * 1e3, "dense_f32_ms": t_f32 * 1e3,
+                  "screened_vs_dense": [e_rho, e_g, e_h],
+                  "f32_vs_f64_rel": e32, "card_vs_cpu_rel": e_cpu}
+    log(f"GTO evaluator, tile {TILE} ({nat} atoms, {w.npri} primitives, "
+        f"{w.nmo} MOs), 65,536 points in the cell, nder=2: screened "
+        f"{t_scr * 1e3:.3f} ms, dense f64 {t_den * 1e3:.3f} ms, dense f32 "
+        f"{t_f32 * 1e3:.3f} ms; screened vs dense rho {e_rho:.3e} (rel), "
+        f"grad {e_g:.3e}, hessian {e_h:.3e}; f32 vs f64 rho {e32:.3e} "
+        f"(rel); card vs CPU on 4,096 points {e_cpu:.3e} (rel)")
+
+    # NELEC of the assembly: normal mesh, KNN weights (f32, molcalc's
+    # default), build and density sweep apart
+    m, t_mesh = wall_s(lambda: becke_mesh(c, "normal",
+                                          weights_dtype=np.float32,
+                                          device=dev))
+    nel, t_sweep = wall_s(lambda: molcalc_nelec(s, lvl="normal"))
+    check(np.isfinite(nel) and abs(nel - nat) < 1.0, f"NELEC assembly {nel}")
+    out["assembly_nelec"] = {"mesh_points": m.n, "mesh_build_s": t_mesh,
+                             "sweep_s": t_sweep, "nelec": nel,
+                             "err_e": nel - nat}
+    log(f"NELEC of the assembly, normal mesh ({m.n} points, KNN f32 "
+        f"weights): {nel:.9f} e, error {nel - nat:.3e} e; mesh build "
+        f"{t_mesh:.3f} s, density sweep + sum {t_sweep:.3f} s")
+
+    # autocp through the screened Newton
+    cpl, t_auto = wall_s(lambda: autocp(s))
+    n, b, r, cc = cpl.counts()
+    ph = cpl.poincare_hopf()
+    arr = cplist_to_arrays(cpl)
+    maxima = arr["r"][arr["typ"] == -3]
+    d_max = np.linalg.norm(w.atpos[:, None, :] - maxima[None], axis=2)
+    mid = 0.5 * (w.atpos[0::2] + w.atpos[1::2])
+    bonds = arr["r"][arr["typ"] == -1]
+    d_mid = np.linalg.norm(mid[:, None, :] - bonds[None], axis=2).min(1)
+    gmax = float(arr["gfmod"][~arr["isnuc"]].max())
+    check(ph == 1, f"autocp assembly: Poincare-Hopf {ph}, counts "
+          f"{cpl.counts()}")
+    check(len(maxima) == nat and d_max.min(1).max() < 0.05,
+          f"autocp assembly: {len(maxima)} maxima")
+    check(d_mid.max() < 0.01, f"autocp assembly: a molecule's bond CP "
+          f"{d_mid.max():.3e} bohr off its midpoint")
+    check(gmax < 1e-10, f"autocp assembly: max |grad rho| {gmax:.3e}")
+    out["autocp"] = {"wall_s": t_auto, "counts": [n, b, r, cc],
+                     "midpoint_dev_max": float(d_mid.max()),
+                     "gfmod_max": gmax}
+    log(f"autocp on the assembly (screened Newton): {t_auto:.3f} s, counts "
+        f"(n, b, r, c) = {cpl.counts()}, PH {ph}, bond CPs within "
+        f"{d_mid.max():.3e} bohr of the {ncopy} midpoints, max |grad rho| "
+        f"{gmax:.3e}")
+
+    # the screened Newton on a 2x2x2 tile, card against CPU
+    small = Wavefunction.from_file(path).tile((2, 2, 2))
+    lists = []
+    for d in (dev, "cpu"):
+        ss = System.from_wavefunction(copy.deepcopy(small), device=d)
+        ss.ref.wfn.SCREEN_NPRI = 0
+        lists.append(cplist_to_arrays(autocp(ss)))
+    check(np.array_equal(lists[0]["typ"], lists[1]["typ"]),
+          "screened Newton 2x2x2: card and CPU lists differ")
+    dr = float(np.abs(lists[0]["r"] - lists[1]["r"]).max())
+    check(dr <= 1e-9, f"screened Newton 2x2x2 card vs CPU {dr:.3e} bohr")
+    out["autocp"]["small_card_vs_cpu_bohr"] = dr
+    log(f"screened Newton on the 2x2x2 tile: {len(lists[0]['typ'])} CPs, "
+        f"card vs CPU {dr:.3e} bohr")
+
+    # makegraph through trace_paths_screened
+    cnt, restore = counting_attempts()
+    try:
+        _, t_graph = wall_s(lambda: makegraph(s, cpl))
+    finally:
+        restore()
+    arr = cplist_to_arrays(cpl)
+    bsel = np.nonzero(arr["typ"] == -1)[0]
+    intra = 0
+    for i in bsel:
+        k = int(np.argmin(np.linalg.norm(mid - arr["r"][i], axis=1)))
+        if np.linalg.norm(mid[k] - arr["r"][i]) < 0.01:
+            intra += 1
+            check(sorted(arr["ipath"][i]) == [2 * k, 2 * k + 1],
+                  f"makegraph: molecule {k}'s bond path ends at "
+                  f"{arr['ipath'][i]}")
+    check(intra == ncopy, f"makegraph: {intra} intramolecular bond paths")
+    out["makegraph"] = {"wall_s": t_graph, **cnt}
+    log(f"makegraph on the assembly (trace_paths_screened): {t_graph:.3f} s, "
+        f"{cnt['attempts']} BS23 attempts ({cnt['lane_attempts']} "
+        f"lane-attempts); all {ncopy} intramolecular bond paths end at their "
+        f"molecule's two nuclei")
+
+    # screened tracer against the dense one on 64 seeds
+    iat = rng.integers(0, nat, 64)
+    u = rng.normal(size=(64, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    seeds = w.atpos[iat] + 0.5 * u
+    kw = dict(iup=1, targets=w.atpos, rterm=np.full(nat, 0.2))
+    ts_, t_ts = wall_s(lambda: trace_paths_screened(w, seeds, device=dev,
+                                                    **kw))
+    td_, t_td = wall_s(lambda: trace_paths(
+        w.eval_closure(nder=1),
+        torch.as_tensor(seeds, dtype=torch.float64, device=dev), **kw))
+    same = (torch.equal(ts_[1], td_[1]) and torch.equal(ts_[2], td_[2]))
+    dx = float((ts_[0] - td_[0]).abs().max())
+    check(same and dx <= 1e-8, f"trace_paths_screened vs dense: status/"
+          f"termid equal {same}, end points {dx:.3e} bohr")
+    out["trace"] = {"screened_s": t_ts, "dense_s": t_td, "dx": dx}
+    log(f"trace_paths_screened vs trace_paths (dense), 64 seeds: status "
+        f"and termid equal, end points {dx:.3e} bohr; {t_ts:.3f} s against "
+        f"{t_td:.3f} s")
+    out["_seeds"] = seeds
+    out["_wfn"] = w
+    return out
+
+
+def late_launch_counts(sl, q, wf):
+    """Kernel launches of one BS23 attempt on the qtree and wavefunction
+    traces; run last, since the profiler slows every later launch."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.ops.ode import trace_paths
+
+    s = sl["system"]
+    f = s.ref
+    seeds = torch.as_tensor(np.asarray(s.crystal.x_cart)[[0, 1]]
+                            + np.array([[1.1, 0.3, 0.2], [0.4, 1.2, 0.1]]),
+                            dtype=torch.float64, device=f.device)
+    # no targets and gradeps 0: no lane stops, every trace runs mstep
+    fq = f.eval_fn(nder=1)
+    q["launches_per_attempt"] = launches_per_attempt(lambda m: trace_paths(
+        fq, seeds, iup=1, gradeps=0.0, mstep=m))[0]
+    w = wf.pop("_wfn")
+    ws = wf.pop("_seeds")
+    shim = w.screened_shim(w.screen_plan(ws[:8], n_chunk=8,
+                                         margin=8.0)[2][0], nder=1)
+    x8 = torch.as_tensor(ws[:8], dtype=torch.float64, device=f.device)
+    wf["trace"]["launches_per_attempt"] = launches_per_attempt(
+        lambda m: trace_paths(shim, x8, iup=1, gradeps=0.0, mstep=m))[0]
+    log(f"kernel launches a BS23 attempt: qtree traces (tricubic, nder=1) "
+        f"{q['launches_per_attempt']:.1f}, screened GTO traces "
+        f"{wf['trace']['launches_per_attempt']:.1f}; the qtree run's "
+        f"{q['attempts']} attempts make about "
+        f"{q['attempts'] * q['launches_per_attempt']:.0f} launches")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1431,8 +1809,16 @@ def main() -> int:
     grid_out = grid_phase(sl, args.profile)
     log(f"grid path phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    q = qtree_phase(sl, dev)
+    log(f"qtree phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wf = wfn_phase(dev)
+    log(f"wavefunction phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     path_phase(sl, grid_out, args.profile)
     log(f"gradient-path and FFT phase: {time.perf_counter() - t0:.1f} s")
+    late_launch_counts(sl, q, wf)
+    log(json.dumps({"qtree": q, "wavefunction": wf}))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -6,11 +6,12 @@ CUDA C++ kernels (``csrc/``), built with nvcc at first use. Entry points
 run on ``cuda`` unless the caller passes ``device=``; every tensor names
 its dtype (f64 by default, config.FDTYPE).
 
-Ported so far: structure + grid density -> ``intgrid(method="yt")``
-(basin volumes and charges), ``autocp`` (critical points by batched
-Newton over tricubic interpolation) and ``nciplot`` (RDG analysis); the
-analysis routines are imported from ``critic2_tpu_torch.analysis.*`` as in the JAX
-package.
+Ported so far: structure + grid density -> ``intgrid`` (YT and Bader
+basins, multipoles), ``autocp`` / ``makegraph`` (critical points and
+their graph), ``nciplot``, qtree, the gradient-path tools, and molecular
+wavefunctions (``.wfn/.wfx/.fchk/.molden`` fields, Becke meshes,
+``molcalc``); the analysis routines are imported from
+``critic2_tpu_torch.analysis.*`` as in the JAX package.
 """
 from .config import EDTYPE, FDTYPE, resolve_device  # noqa: F401
 from .crystal.crystal import Crystal, Species  # noqa: F401

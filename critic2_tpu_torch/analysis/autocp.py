@@ -170,8 +170,10 @@ def _seed_ws_impl(crystal, x0=(0.0, 0.0, 0.0), depth: int = 1,
     return seeds
 
 
-def gen_seeds(crystal, seeds: list[Seed]) -> np.ndarray:
-    """Build the full fractional seed array from the strategies."""
+def gen_seeds(crystal, seeds: list[Seed], device=None) -> np.ndarray:
+    """Build the full fractional seed array from the strategies (mesh
+    seeds build their Becke mesh's weights on `device`, cuda by
+    default)."""
     xs = []
     cart = crystal.x_cart
     for s in seeds:
@@ -241,9 +243,13 @@ def gen_seeds(crystal, seeds: list[Seed]) -> np.ndarray:
         elif s.typ == "point":
             xs.append(np.atleast_2d(np.asarray(s.x0, dtype=float)))
         elif s.typ == "mesh":
-            raise NotImplementedError(
-                "seed type mesh waits for analysis/mesh.py, which is not "
-                "ported to the torch package yet")
+            # molecular integration mesh nodes as seeds (reference
+            # styp_mesh, src/autocp@proc.f90:498-500)
+            from .mesh import becke_mesh
+
+            m = becke_mesh(crystal, getattr(s, "level", None) or "small",
+                           device=device)
+            xs.append(crystal.c2x(m.x))
         else:
             raise ValueError(f"unknown seed type {s.typ}")
     if not xs:
@@ -284,6 +290,87 @@ def _sphere_triangulation(depth: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # the search
 # ---------------------------------------------------------------------------
+def _screened(f) -> bool:
+    """Whether the field is a molecular wavefunction large enough for
+    the screened evaluator (the dense one holds (P, N) temporaries)."""
+    return (f.type == "wfn" and f.coreenv is None
+            and f.wfn.npri >= f.wfn.SCREEN_NPRI)
+
+
+def _newton_screened(w, cart, gfnormeps, maxit, n_chunk: int = 512,
+                     margin: float = 3.0, seg: int = 30, device=None):
+    """Newton CP refinement through the screened GTO evaluator.
+
+    Two stages, both chunked spatially (fields/wfn.screen_plan); several
+    chunks advance together through their block tables (one batched
+    evaluation, lanes kept in place):
+
+    1. f32 sweep to an f32-reachable gradient floor, in segments of
+       `seg` iterations with global compaction + re-planning between
+       segments: surviving seeds are re-chunked at their CURRENT
+       positions (which also refreshes block tables the seeds walked
+       out of), and seeds outside the escape sphere
+       |x| > max|atpos| + 10 are dropped. Without the segmenting, a
+       handful of never-converging lanes keep every chunk running the
+       full iteration budget.
+    2. f64 polish: stage-1 candidates are clustered on a cpeps/2
+       rounding grid (duplicate seeds converge to duplicate CPs by the
+       thousands), ONE representative per cluster is polished to the
+       true gfnormeps with fresh block tables, and every member inherits
+       its representative's polished position (the downstream cpeps
+       dedup merges them regardless)."""
+    dev = resolve_device(device)
+    rmax = float(np.linalg.norm(np.asarray(w.atpos), axis=1).max() + 10.0)
+
+    def _pass(points, nit, dtype, eps):
+        order, xstack, bidx, N = w.screen_plan(points, n_chunk=n_chunk,
+                                               margin=margin)
+        G = w.sweep_group(n_chunk, bidx.shape[1], 2)
+        xs, convs = [], []
+        for lo in range(0, len(xstack), G):
+            shim = w.screened_shim(bidx[lo:lo + G], nder=2, dtype=dtype,
+                                   device=dev)
+            x0 = torch.as_tensor(
+                xstack[lo:lo + G].transpose(0, 2, 1).reshape(-1, 3),
+                dtype=FDTYPE, device=dev)
+            xx, cc, _ = newton_batch(shim, x0, gfnormeps=eps, maxit=nit,
+                                     compact=False)
+            xs.append(xx.cpu().numpy())
+            convs.append(cc.cpu().numpy())
+        inv = np.argsort(order)
+        return np.concatenate(xs)[:N][inv], np.concatenate(convs)[:N][inv]
+
+    x = np.array(cart, dtype=float, copy=True)
+    N0 = len(x)
+    conv = np.zeros(N0, bool)
+    alive = np.ones(N0, bool)
+    eps32 = max(gfnormeps, 1e-4)
+    left = maxit
+    while left > 0 and alive.any():
+        idx = np.flatnonzero(alive)
+        xs, cs = _pass(x[idx], seg, torch.float32, eps32)
+        x[idx] = xs
+        esc = np.linalg.norm(xs, axis=1) > rmax
+        conv[idx] = cs & ~esc
+        alive[idx] = ~cs & ~esc
+        left -= seg
+    # lanes that ran out of f32 budget near a CP (the f32 gradient
+    # noise floor scales with the local density) still join the polish
+    # set; the f64 stage is the arbiter of convergence
+    cand = conv | alive
+    if not cand.any():
+        return x, conv
+    ci = np.flatnonzero(cand)
+    key = np.round(x[ci] / 5e-3).astype(np.int64)
+    _, rep, inv_g = np.unique(key, axis=0, return_index=True,
+                              return_inverse=True)
+    inv_g = inv_g.reshape(-1)
+    xr, cr = _pass(x[ci[rep]], 20, None, gfnormeps)
+    x[ci] = xr[inv_g]
+    conv[ci] = cr[inv_g]
+    return x, conv
+
+
 def init_cplist(system) -> CPList:
     """Atoms enter the CP list as nuclear maxima (reference init_cplist,
     src/fieldmod@proc.f90:1402)."""
@@ -333,7 +420,7 @@ def autocp(system, seeds: list[Seed] | None = None, gfnormeps: float = 1e-12,
     if nucepsh is None:
         nucepsh = 2e-1
 
-    xseed = gen_seeds(c, seeds)
+    xseed = gen_seeds(c, seeds, device=system.device)
     if len(xseed) == 0:
         return cpl or init_cplist(system)
 
@@ -370,22 +457,23 @@ def autocp(system, seeds: list[Seed] | None = None, gfnormeps: float = 1e-12,
     if verbose:
         print(f"autocp: {len(cart)} seeds")
 
-    # --- batched Newton on device, chunked to bound memory ---
-    if f.type not in ("grid", "promol"):
-        raise NotImplementedError(
-            f"autocp on {f.type} fields (the screened-wavefunction Newton "
-            "included) waits for fields/wfn.py, which is not ported to the "
-            "torch package yet")
-    fn = f.eval_fn(nder=2)
-    xs, convs = [], []
-    for lo in range(0, len(cart), chunk):
-        x0 = torch.as_tensor(cart[lo:lo + chunk], dtype=FDTYPE,
-                             device=f.device)
-        xx, cc, _ = newton_batch(fn, x0, gfnormeps=gfnormeps, maxit=maxit)
-        xs.append(xx.cpu().numpy())
-        convs.append(cc.cpu().numpy())
-    xfin = np.concatenate(xs)
-    conv = np.concatenate(convs)
+    # --- batched Newton on device, chunked to bound memory; large
+    # molecular wavefunctions go through the screened evaluator ---
+    if _screened(f):
+        xfin, conv = _newton_screened(f.wfn, cart, gfnormeps, maxit,
+                                      device=f.device)
+    else:
+        fn = f.eval_fn(nder=2)
+        xs, convs = [], []
+        for lo in range(0, len(cart), chunk):
+            x0 = torch.as_tensor(cart[lo:lo + chunk], dtype=FDTYPE,
+                                 device=f.device)
+            xx, cc, _ = newton_batch(fn, x0, gfnormeps=gfnormeps,
+                                     maxit=maxit)
+            xs.append(xx.cpu().numpy())
+            convs.append(cc.cpu().numpy())
+        xfin = np.concatenate(xs)
+        conv = np.concatenate(convs)
     xfin = xfin[conv]
     if verbose:
         print(f"autocp: {len(xfin)} converged")
@@ -504,11 +592,6 @@ def makegraph(system, cpl: CPList, change: float = 1e-2,
     resolve_device(system.device)
     c = system.crystal
     f = system.ref
-    if f.type not in ("grid", "promol"):
-        raise NotImplementedError(
-            f"makegraph on {f.type} fields (the screened-wavefunction "
-            "tracer included) waits for fields/wfn.py, which is not ported "
-            "to the torch package yet")
 
     def _targets(typ_sel):
         idx = [i for i, cp in enumerate(cpl.cps) if cp.typ == typ_sel]
@@ -532,7 +615,8 @@ def makegraph(system, cpl: CPList, change: float = 1e-2,
         imgs = (pos[None, :, :] + shifts[:, None, :]).reshape(-1, 3)
         return c.x2c(imgs), np.tile(ids, len(shifts))
 
-    fn = f.eval_fn(nder=2)
+    screened = _screened(f)
+    fn = None if screened else f.eval_fn(nder=2)
     for typ, iup, ttyp in ((-1, 1, f.typnuc), (1, -1, -f.typnuc)):
         sel = [i for i, cp in enumerate(cpl.cps) if cp.typ == typ]
         if not sel:
@@ -549,13 +633,29 @@ def makegraph(system, cpl: CPList, change: float = 1e-2,
                 owner.append(i)
                 sgn.append(s)
         tgt, tgt_ids = _targets(ttyp)
-        _, status, termid, plen, _ = trace_paths(
-            fn, torch.as_tensor(np.array(seeds), dtype=FDTYPE,
-                                device=f.device),
-            iup=iup, targets=tgt if len(tgt) else None,
-            rterm=np.full(len(tgt), rterm) if len(tgt) else None,
-            m_c2x=c.m_c2x if c.ismolecule else None,
-            molborder=c.molborder if c.ismolecule else None)
+        kw = dict(iup=iup, targets=tgt if len(tgt) else None,
+                  rterm=np.full(len(tgt), rterm) if len(tgt) else None,
+                  m_c2x=c.m_c2x if c.ismolecule else None,
+                  molborder=c.molborder if c.ismolecule else None)
+        if screened:
+            from ..ops.ode import trace_paths_screened
+
+            # one group for all seeds, as wide as the screened
+            # evaluator's memory budget allows: the tracer is
+            # launch-bound, and a path that crawls into a saddle on a
+            # symmetry plane holds its whole group for all mstep attempts
+            # (768-atom H2 tile on an H100: 256-seed groups took 32,448
+            # attempts and 233 s, eight of them running all 4,000; one
+            # group takes 4,032 attempts and 40 s)
+            w = f.wfn
+            wide = w.SWEEP_BYTES // (w._screen()["Pp"] * 8 * 30)
+            _, status, termid, plen, _ = trace_paths_screened(
+                w, np.array(seeds), device=f.device,
+                n_chunk=int(max(256, min(len(seeds), wide))), **kw)
+        else:
+            _, status, termid, plen, _ = trace_paths(
+                fn, torch.as_tensor(np.array(seeds), dtype=FDTYPE,
+                                    device=f.device), **kw)
         status = status.cpu().numpy()
         termid = termid.cpu().numpy()
         plen = plen.cpu().numpy()

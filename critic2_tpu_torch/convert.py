@@ -3,8 +3,10 @@
 A structure travels as m_x2c (3,3), x_frac (ncel,3), species_of (ncel,),
 species [(name, Z)] and, for a molecule, ismolecule / molx0 / molborder;
 a grid field as its (n1,n2,n3) array; a critical-point list as one array
-per attribute (the bond/ring-path graph included); a Bader result and an
-integration result's rows likewise. From them
+per attribute (the bond/ring-path graph included); a Bader result, an
+integration result's rows and a qtree result likewise; a molecular
+wavefunction as its primitive arrays (atpos, atz, icenter, itype, e,
+cmo, occ, the EDF arrays, wfntyp, nalpha). From them
 the port builds its own Crystal, Field and System, so both packages
 compute on identical inputs. Nothing here imports the JAX package: the
 caller reads the arrays off its objects (``crystal_to_arrays`` works on
@@ -114,3 +116,47 @@ def integration_to_arrays(intres) -> dict:
             "volume": np.array([r.volume for r in rows], dtype=float),
             "pop": np.array([r.pop for r in rows], dtype=float),
             "attr_map": np.array(intres.attr_map, dtype=int)}
+
+
+_WFN_ARRAYS = ("atpos", "atz", "icenter", "itype", "e", "cmo", "occ",
+               "edf_icenter", "edf_itype", "edf_e", "edf_c")
+
+
+def wavefunction_to_arrays(wfn) -> dict:
+    """The numpy form of a Wavefunction of either package (copies; the
+    EDF arrays are None without an EDF core density)."""
+    out = {k: (None if getattr(wfn, k) is None
+               else np.array(getattr(wfn, k))) for k in _WFN_ARRAYS}
+    out.update(wfntyp=str(wfn.wfntyp), nalpha=int(wfn.nalpha),
+               source=str(wfn.source))
+    return out
+
+
+def wavefunction_from_arrays(atpos, atz, icenter, itype, e, cmo, occ,
+                             wfntyp: str = "rhf", nalpha: int = 0,
+                             source: str = "", edf_icenter=None,
+                             edf_itype=None, edf_e=None, edf_c=None):
+    """The port's Wavefunction from the numpy form."""
+    from .fields.wfn import Wavefunction
+
+    def opt(a, dt):
+        return None if a is None else np.array(a, dtype=dt)
+
+    return Wavefunction(
+        atpos=np.array(atpos, dtype=float), atz=np.array(atz, dtype=int),
+        icenter=np.array(icenter, dtype=np.int32),
+        itype=np.array(itype, dtype=np.int32), e=np.array(e, dtype=float),
+        cmo=np.array(cmo, dtype=float), occ=np.array(occ, dtype=float),
+        wfntyp=str(wfntyp), nalpha=int(nalpha), source=str(source),
+        edf_icenter=opt(edf_icenter, np.int32),
+        edf_itype=opt(edf_itype, np.int32), edf_e=opt(edf_e, float),
+        edf_c=opt(edf_c, float))
+
+
+def qtree_to_arrays(res) -> dict:
+    """The numpy form of a QtreeResult of either package."""
+    return {"names": np.array(res.names, dtype=str),
+            "pops": np.array(res.pops, dtype=float),
+            "volumes": np.array(res.volumes, dtype=float),
+            "nlevels": int(res.nlevels), "ntraced": int(res.ntraced),
+            "nrefined": int(res.nrefined)}

@@ -4,8 +4,8 @@ Role of the reference fieldmod (src/fieldmod.f90): a field is a crystal
 plus one evaluation backend, evaluated through a single dispatch `grd`
 that returns value, gradient, Hessian and derived scalars for a whole
 batch of points (reference grd, src/fieldmod@proc.f90:613-845). The port
-carries the grid and promolecular types; the others (wfn, wien, elk, pi,
-dftb, ghost) raise NotImplementedError.
+carries the grid, promolecular and molecular-wavefunction (wfn) types;
+the others (wien, elk, pi, dftb, ghost) raise NotImplementedError.
 
 Pipeline per batch (mirrors the reference):
   1. Cartesian -> fractional, wrap to the main cell (periodic)
@@ -50,9 +50,11 @@ class ScalarBatch:
 @dataclass
 class Field:
     crystal: object
-    type: str       # 'grid' | 'promol'
+    type: str       # 'grid' | 'promol' | 'wfn'
     grid: Grid3 | None = None
     promol: PromolEnv | None = None
+    wfn: object | None = None       # fields/wfn.Wavefunction
+    wdevice: torch.device | None = None   # where a wfn field evaluates
     name: str = ""
     usecore: bool = False
     zpsp: dict = dfield(default_factory=dict)
@@ -82,17 +84,49 @@ class Field:
                 fmt = detect_grid_format(path)
             except ValueError:
                 fmt = None
+        if fmt is None:
+            from ..crystal.seed import is_wfn_path
+
+            if is_wfn_path(path):
+                return cls.from_wavefunction(crystal, path, name=name,
+                                             device=device, **kw)
         if fmt != "cube":
             raise NotImplementedError(
                 f"field format {fmt or path} is not ported to the torch "
-                "package yet (cube only)")
+                "package yet (cube and molecular wavefunctions only)")
         g = Grid3.from_file(path, fmt=fmt, device=device)
         return cls.from_grid(crystal, g, name=name or path, **kw)
 
+    @classmethod
+    def from_wavefunction(cls, crystal, wfn, name: str = "", device=None,
+                          **kw) -> "Field":
+        """A wfn field from a Wavefunction or a .wfn/.wfx/.fchk/.molden
+        path. A molecule lives in its cell's shifted frame (molx0): the
+        wavefunction moves into it so all evaluations share one frame."""
+        import copy
+
+        from ..config import resolve_device
+        from .wfn import Wavefunction
+
+        if isinstance(wfn, str):
+            name = name or wfn
+            wfn = Wavefunction.from_file(wfn)
+        else:
+            wfn = copy.copy(wfn)
+            wfn.atpos = np.array(wfn.atpos, dtype=float)
+        if crystal.ismolecule and crystal.molx0 is not None:
+            wfn.atpos = wfn.atpos - np.asarray(crystal.molx0)
+        wfn.reset_caches()
+        return cls(crystal=crystal, type="wfn", wfn=wfn,
+                   wdevice=resolve_device(device), name=name or "wfn", **kw)
+
     @property
     def device(self) -> torch.device:
-        return self.grid.f.device if self.type == "grid" \
-            else self.promol.device
+        if self.type == "grid":
+            return self.grid.f.device
+        if self.type == "wfn":
+            return self.wdevice
+        return self.promol.device
 
     # ------------------------------------------------------------------
     def set_options(self, interp: str | None = None,
@@ -160,6 +194,8 @@ class Field:
             f = y
         elif self.type == "promol":
             f, gf, hf = self.promol.eval(wc, nder=nder)
+        elif self.type == "wfn":
+            f, gf, hf = self.wfn.rho_eval(v, nder=nder)  # molecules: no wrap
         else:
             raise NotImplementedError(
                 f"{self.type} fields are not ported to the torch package "
@@ -205,7 +241,7 @@ class Field:
         return self._evalfns[key]
 
     def _build_eval_fn(self, nder: int, clamp_nuclei: bool):
-        if self.type not in ("grid", "promol"):
+        if self.type not in ("grid", "promol", "wfn"):
             raise NotImplementedError(
                 f"eval_fn for {self.type} fields is not ported to the torch "
                 "package yet")
@@ -225,6 +261,9 @@ class Field:
                 grid.spline_coeffs
             elif grid.mode == "tristar":
                 grid.star_c2
+        elif ftype == "wfn":
+            dev, dt = self.device, FDTYPE
+            wfn = self.wfn
         else:
             dev, dt = promol.atpos.device, promol.atpos.dtype
 
@@ -245,6 +284,11 @@ class Field:
                 f = y
                 gf = linmap(m_c2x.T, yp)
                 h6 = linmap(r6, ypp6)
+            elif ftype == "wfn":
+                # molecules: Cartesian points, no wrap; the dense
+                # evaluator whatever the size (the screened one needs a
+                # block table per spatial chunk, see analysis/autocp.py)
+                f, gf, h6 = wfn.rho_eval_dense(xT, nder=nder)
             else:
                 f, gf, h6 = promolecular_soa(wc, promol.atpos, promol.atspc,
                                              promol.tab, nder=nder)

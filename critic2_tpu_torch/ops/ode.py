@@ -36,7 +36,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-__all__ = ["trace_paths", "trace_paths_recorded", "STAT_ATTRACTOR",
+__all__ = ["trace_paths", "trace_paths_recorded", "trace_paths_screened",
+           "STAT_ATTRACTOR",
            "STAT_NEWCP", "STAT_STUCK", "STAT_ESCAPED", "STAT_MAXSTEP",
            "STAT_OOR"]
 
@@ -45,8 +46,8 @@ STAT_NEWCP = 1
 STAT_STUCK = 2
 STAT_ESCAPED = 3
 STAT_MAXSTEP = 4
-STAT_OOR = 5      # left a screened chunk's validity sphere (resumable);
-                  # set only by the screened tracer, which is not ported
+STAT_OOR = 5      # left a screened chunk's validity sphere (resumable:
+                  # trace_paths_screened re-plans and continues)
 
 COMPACT_MIN = 256          # working batches at or below this never pack
 TARGET_BLOCK = 1 << 26     # most (lane, target) distances formed at once
@@ -63,6 +64,8 @@ class _Setup:
     rt: torch.Tensor | None      # (K,) termination radii
     m_c2x: torch.Tensor | None   # molecular-cell escape (downhill only)
     molborder: torch.Tensor | None
+    ecent: torch.Tensor | None   # (3,) centre of the escape sphere
+    erad: float
     hini: float
     maxerr: float
     gradeps: float
@@ -119,6 +122,14 @@ def _attempt(su: _Setup, st):
         status = mark(out, STAT_ESCAPED, status)
         done = done | out
 
+    # pause: left the screened chunk's validity sphere (the block table
+    # no longer covers the field here) - resumable
+    if su.ecent is not None:
+        oor = (((xT - su.ecent[:, None]) ** 2).sum(0)
+               > su.erad * su.erad) & ~done
+        status = mark(oor, STAT_OOR, status)
+        done = done | oor
+
     # BS23 attempt (FSAL: d1 is the direction at xT)
     d2_, _ = su.direction(xT + 0.5 * h[None, :] * d1)
     d3_, _ = su.direction(xT + 0.75 * h[None, :] * d2_)
@@ -151,10 +162,6 @@ def _attempt(su: _Setup, st):
 def _start(eval_fn, x0, iup, targets, rterm, hini, maxerr, gradeps, m_c2x,
            molborder, escape, h0=None, plen0=None):
     """Check the inputs and build the fixed setup and the initial state."""
-    if escape is not None:
-        raise NotImplementedError(
-            "escape= serves the screened-wavefunction tracer, which waits "
-            "for fields/wfn.py; it is not ported to the torch package yet")
     if not isinstance(x0, torch.Tensor) or x0.dtype != torch.float64:
         raise TypeError("trace_paths needs float64 seeds as a tensor "
                         "(N, 3): the direction guard |grad| + 1e-80 "
@@ -172,6 +179,8 @@ def _start(eval_fn, x0, iup, targets, rterm, hini, maxerr, gradeps, m_c2x,
                 rt=f64(rterm) if have_t else None,
                 m_c2x=f64(m_c2x) if m_c2x is not None else None,
                 molborder=f64(molborder) if m_c2x is not None else None,
+                ecent=f64(escape[0]) if escape is not None else None,
+                erad=float(escape[1]) if escape is not None else 0.0,
                 hini=float(hini), maxerr=float(maxerr),
                 gradeps=float(gradeps))
     d1, gmod = su.direction(xT0)
@@ -205,6 +214,8 @@ def trace_paths(eval_fn, x0, iup: int = 1, targets=None, rterm=None,
     m_c2x/molborder: enable molecular-cell escape detection (iup == -1).
     h0 / plen0: optional per-trajectory initial step and path length
     (resume support).
+    escape: optional (centre (3,), radius): lanes that leave the sphere
+    pause with STAT_OOR (the screened tracer's validity sphere).
     compact: between segments, pack the still-live trajectories once at
     most half the working lanes are live. Straggler paths (separatrix
     ridge crawlers whose step collapses to the local feature size)
@@ -286,3 +297,74 @@ def trace_paths_recorded(eval_fn, x0, nrec: int = 400, iup: int = 1,
         keep[1:] = np.linalg.norm(np.diff(p, axis=0), axis=1) > 1e-12
         paths.append(p[keep])
     return paths, st[3].cpu().numpy(), st[4].cpu().numpy()
+
+
+def trace_paths_screened(wfn, x0, iup: int = 1, targets=None, rterm=None,
+                         hini: float = 0.3, maxerr: float = 1e-4,
+                         gradeps: float = 1e-7, mstep: int = 4000,
+                         m_c2x=None, molborder=None, n_chunk: int = 256,
+                         margin: float = 8.0, max_rounds: int = 12,
+                         dtype=None, device=None):
+    """trace_paths through the screened GTO evaluator (large molecules).
+
+    Seeds x0 (N, 3) are grouped spatially (fields/wfn.screen_plan); each
+    group traces with its own block table inside an ESCAPE SPHERE of
+    radius chunk_radius + margin, where the truncated field is exact to
+    the screening threshold. Paths that leave their sphere pause with
+    STAT_OOR and are re-grouped at their current positions for the next
+    round, carrying step size and path length - the batch analogue of
+    the reference rebuilding its near-atom list every evaluation
+    (src/wfn_private@proc.F90:2070). Runs on `device` (cuda by default).
+
+    Returns (x (N, 3), status, termid, plen, h) like trace_paths, as
+    tensors on the device."""
+    from ..config import resolve_device
+
+    dev = resolve_device(device)
+    x = np.array(np.asarray(x0, float), copy=True).reshape(-1, 3)
+    N = len(x)
+    h = np.full(N, float(hini))
+    plen = np.zeros(N)
+    stat = np.full(N, STAT_OOR, np.int32)
+    term = np.full(N, -1, np.int64)
+    pend = np.arange(N)
+
+    for _ in range(max_rounds):
+        if len(pend) == 0:
+            break
+        order, xstack, bidx, Np = wfn.screen_plan(x[pend], n_chunk=n_chunk,
+                                                  margin=margin)
+        nxt = []
+        for i in range(len(xstack)):
+            lo = i * n_chunk
+            js = np.arange(lo, min(lo + n_chunk, Np))
+            gidx = pend[order[js]]
+            pts = xstack[i].T                  # (n, 3) padded
+            ecent = pts.mean(0)
+            rc = np.linalg.norm(pts - ecent, axis=1).max()
+            shim = wfn.screened_shim(bidx[i], nder=1, dtype=dtype,
+                                     device=dev)
+            h0 = np.full(len(pts), hini)
+            p0 = np.zeros(len(pts))
+            h0[:len(js)] = h[gidx]
+            p0[:len(js)] = plen[gidx]
+            xx, ss, tt, pp, hh = trace_paths(
+                shim, torch.as_tensor(pts, dtype=torch.float64, device=dev),
+                iup=iup, targets=targets, rterm=rterm, hini=hini,
+                maxerr=maxerr, gradeps=gradeps, mstep=mstep, m_c2x=m_c2x,
+                molborder=molborder, h0=h0, plen0=p0,
+                escape=(ecent, rc + margin - min(1.0, 0.25 * margin)))
+            ss = ss.cpu().numpy()[:len(js)]
+            x[gidx] = xx.cpu().numpy()[:len(js)]
+            h[gidx] = hh.cpu().numpy()[:len(js)]
+            plen[gidx] = pp.cpu().numpy()[:len(js)]
+            stat[gidx] = ss
+            term[gidx] = tt.cpu().numpy()[:len(js)]
+            nxt.append(gidx[ss == STAT_OOR])
+        pend = np.concatenate(nxt) if nxt else np.zeros(0, int)
+
+    def t(a, dt):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    return (t(x, torch.float64), t(stat, torch.int32), t(term, torch.int64),
+            t(plen, torch.float64), t(h, torch.float64))

@@ -1,19 +1,26 @@
-"""Quadrature engines: batched adaptive Gauss-Kronrod radial panels.
+"""Quadrature engines: batched adaptive Gauss-Kronrod radial panels and
+the Keast tetrahedral rules.
 
 Role of the reference quadpack (QAGS/QNG/QAG used by int_radialquad,
-src/integration@proc.f90:272-374). The Keast tetrahedral rules of the
-JAX package's module serve qtree and are not ported yet. The reference
-adapts one ray at a
+src/integration@proc.f90:272-374). The reference adapts one ray at a
 time with scalar quadpack; here ALL rays advance together: each
 host-side round evaluates every active panel's 15 Kronrod nodes for
 every ray in ONE device batch, accepts converged panels and bisects the
-rest.
+rest. The Keast rules (reference keast.f90) serve qtree's tetrahedral
+cubature; their tables are data, read from the JAX package's
+``keast.npz`` by file path.
 """
 from __future__ import annotations
 
+import functools
+import os
+
 import numpy as np
 
-__all__ = ["gauleg", "radial_gauleg", "radial_adaptive"]
+from ..param import DATA_DIR
+
+__all__ = ["gauleg", "radial_gauleg", "radial_adaptive", "keast_rule",
+           "keast_points"]
 
 # 15-point Kronrod extension of 7-point Gauss (standard G7K15 pair)
 _XK = np.array([
@@ -131,3 +138,32 @@ def radial_adaptive(eval_batch, x0, units, r0, rend, abserr: float = 1e-10,
         b = np.concatenate([mids, b[keep]])
     return total * (sign[:, None] if total.ndim == 2 else sign), \
         err_tot, neval
+
+
+# ----------------------------------------------------------------- keast
+
+@functools.lru_cache(maxsize=1)
+def _keast_tables() -> dict:
+    with np.load(os.path.join(DATA_DIR, "keast.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def keast_rule(rule: int):
+    """(nodes (n,3) barycentric, weights (n,)) of Keast rule 1..10,
+    weights summing to 1/6 (unit tetrahedron volume)."""
+    t = _keast_tables()
+    return t[f"nodes{rule}"], t[f"weights{rule}"]
+
+
+def keast_points(tets, rule: int):
+    """Quadrature points/weights for a batch of tetrahedra (T, 4, 3):
+    returns (points (T, n, 3), weights (T, n)) with weights including
+    the 6V scaling so sum w = volume."""
+    nodes, w = keast_rule(rule)
+    v0 = tets[:, 0]
+    e = tets[:, 1:] - v0[:, None, :]                         # (T, 3, 3)
+    # unit-tet coordinates (x, y, z): p = v0 + x e1 + y e2 + z e3
+    pts = v0[:, None, :] + np.einsum("nj,tjd->tnd", nodes, e)
+    vol6 = np.abs(np.einsum("ti,ti->t", np.cross(e[:, 0], e[:, 1]), e[:, 2]))
+    wts = w[None, :] * vol6[:, None]
+    return pts, wts

@@ -15,6 +15,7 @@ DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "critic2_tpu", "data")
 
 BOHR_TO_ANGSTROM = 0.529177210903
+ANGSTROM_TO_BOHR = 1.0 / BOHR_TO_ANGSTROM
 
 # coordinate-system selectors (reference icrd_*, src/param.f90)
 ICRD_CART = 0

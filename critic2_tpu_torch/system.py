@@ -24,19 +24,54 @@ class System:
     zpsp: dict = dfield(default_factory=dict)     # system-level ZPSP
 
     @classmethod
-    def from_structure(cls, crystal, device=None):
-        """System around a Crystal, with the promolecular density loaded
-        as field 0. Runs on cuda unless `device` says otherwise."""
+    def from_structure(cls, crystal, device=None, border: float = 10.0):
+        """System around a Crystal, or around the molecule of a
+        wavefunction file (.wfn, .wfx, .fchk/.fch/.fck, .molden; embedded
+        in a cell with `border` bohr of vacuum), with the promolecular
+        density loaded as field 0. Runs on cuda unless `device` says
+        otherwise. Load the wavefunction itself with load_field(path)."""
         from .crystal.crystal import Crystal
+        from .crystal.seed import is_wfn_path, read_wfn_structure
         from .fields.field import Field
 
+        if isinstance(crystal, str) and is_wfn_path(crystal):
+            crystal = read_wfn_structure(crystal, border=border).to_crystal()
         if not isinstance(crystal, Crystal):
             raise NotImplementedError(
-                "structure readers are not ported to the torch package yet; "
-                "pass a Crystal")
+                "structure readers other than the molecular wavefunction "
+                "formats are not ported to the torch package yet; pass a "
+                "Crystal")
         s = cls(crystal=crystal, device=resolve_device(device))
         s.fields[0] = Field.promolecular(crystal, name="rho0",
                                          device=s.device)
+        return s
+
+    @classmethod
+    def from_wavefunction(cls, wfn, border: float = 10.0, name: str = "",
+                          device=None):
+        """System around an in-memory Wavefunction (no file): embeds the
+        molecule in a border-padded cell (reference molx0/molborder
+        semantics) and loads the wfn as field 1, the reference. Species
+        are ordered by atomic number."""
+        from . import param
+        from .crystal.crystal import Species
+        from .crystal.seed import CrystalSeed
+        from .fields.field import Field
+
+        zs = np.asarray(wfn.atz, dtype=int)
+        uniq = sorted(set(int(z) for z in zs))
+        spmap = {z: i for i, z in enumerate(uniq)}
+        seed = CrystalSeed(
+            x_frac=np.asarray(wfn.atpos, float),    # cartesian for mols
+            species_of=np.array([spmap[int(z)] for z in zs]),
+            species=[Species(param.ELEMENTS[z] if z < len(param.ELEMENTS)
+                             else f"Z{z}", z) for z in uniq],
+            border=border, name=name or wfn.source)
+        c = seed.to_crystal()
+        s = cls.from_structure(c, device=device)
+        s.load_field(Field.from_wavefunction(c, wfn, name=name or "wfn",
+                                             device=s.device))
+        s.iref = 1
         return s
 
     def load_field(self, source, fid=None, name=None, **kw):

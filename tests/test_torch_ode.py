@@ -186,6 +186,9 @@ def test_resume_with_h0_and_plen0_matches_jax(nacl):
 
 
 def test_float32_and_escape_are_refused(nacl):
+    """float32 and numpy seeds are refused. escape= (the screened
+    tracer's validity sphere) used to be refused too; it is ported now:
+    a seed outside the sphere pauses at once with STAT_OOR."""
     _, ts = nacl
     fn = ts.ref.eval_fn(nder=2)
     x = torch.zeros((2, 3), dtype=torch.float32) + 1.0
@@ -193,8 +196,10 @@ def test_float32_and_escape_are_refused(nacl):
         tode.trace_paths(fn, x)
     with pytest.raises(TypeError):
         tode.trace_paths(fn, np.ones((2, 3)))
-    with pytest.raises(NotImplementedError, match="fields/wfn.py"):
-        tode.trace_paths(fn, x.double(), escape=(np.zeros(3), 1.0))
+    xx, st, _, plen, _ = tode.trace_paths(fn, x.double(),
+                                          escape=(np.zeros(3), 1.0))
+    assert (st.numpy() == tode.STAT_OOR).all()
+    assert torch.equal(xx, x.double()) and not plen.any()
 
 
 def test_recorded_paths_match_jax(nacl):

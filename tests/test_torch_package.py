@@ -18,13 +18,18 @@ from critic2_tpu_torch.analysis.bisect import (basin_integral, bisect_basin,
                                                sphere_integral)
 from critic2_tpu_torch.analysis.flux import fluxprint
 from critic2_tpu_torch.analysis.integration import intgrid
+from critic2_tpu_torch.analysis.mesh import becke_mesh
+from critic2_tpu_torch.analysis.molcalc import molcalc_nelec
 from critic2_tpu_torch.analysis.nci import nciplot
+from critic2_tpu_torch.analysis.qtree import qtree_integrate
 from critic2_tpu_torch.analysis.yt import yt_integrate
 from critic2_tpu_torch.convert import (crystal_from_arrays,
                                        crystal_to_arrays,
                                        system_from_arrays)
+from critic2_tpu_torch.fields.field import Field
+from critic2_tpu_torch.fields.wfn import Wavefunction
 from critic2_tpu_torch.ops import _ext
-from critic2_tpu_torch.ops.ode import trace_paths
+from critic2_tpu_torch.ops.ode import trace_paths, trace_paths_screened
 
 # the inputs are tiny: one intra-op thread a process, so that parallel
 # test workers do not fight over the cores
@@ -59,7 +64,7 @@ def _imported_roots(path):
 
 def test_no_jax_or_jax_package_import_anywhere():
     mods = list(_modules())
-    assert len(mods) >= 36
+    assert len(mods) >= 41
     assert not [p for p in mods if "_build" in p]
     bad = [(os.path.relpath(p, ROOT), r) for p in mods
            for r in _imported_roots(p) if r in FORBIDDEN]
@@ -75,6 +80,11 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import critic2_tpu_torch.analysis.bader\n"
             "import critic2_tpu_torch.analysis.bisect\n"
             "import critic2_tpu_torch.analysis.flux\n"
+            "import critic2_tpu_torch.analysis.mesh\n"
+            "import critic2_tpu_torch.analysis.molcalc\n"
+            "import critic2_tpu_torch.analysis.qtree\n"
+            "import critic2_tpu_torch.crystal.seed\n"
+            "import critic2_tpu_torch.fields.wfn\n"
             "import critic2_tpu_torch.analysis.surface\n"
             "import critic2_tpu_torch.io.graphics\n"
             "import critic2_tpu_torch.ops.fft\n"
@@ -176,15 +186,15 @@ def _grid_system(mode=None):
 
 
 @pytest.mark.parametrize("what, call", [
-    ("analysis/mesh.py",
-     lambda: gen_seeds(_crystal(), [Seed(typ="mesh")])),
+    (None, lambda: gen_seeds(_molecule().crystal, [Seed(typ="mesh")],
+                             device="cpu")),
     ("crystal/fragment.py",
      lambda: nciplot(_grid_system(), molmotif=True)),
     ("crystal/spgs.py", lambda: _crystal().spg_name()),
     ("crystal/wyckoff.py", lambda: _crystal().wyckoffs()),
-    ("fields/wfn.py", lambda: autocp(_wfn_system())),
-    ("fields/wfn.py", lambda: makegraph(_wfn_system(), None)),
-    ("fields/wfn.py",
+    (None, lambda: autocp(_molecule())),
+    (None, lambda: makegraph(_molecule(), autocp(_molecule()))),
+    (None,
      lambda: trace_paths(_grid_system().ref.eval_fn(),
                          torch.ones((1, 3), dtype=torch.float64),
                          escape=(np.zeros(3), 1.0))),
@@ -200,6 +210,13 @@ def _grid_system(mode=None):
         "wfn-makegraph", "ode-escape", "sphere_integral-expr",
         "basin_integral-expr", "intgrid-discard", "fragment-file"])
 def test_unported_branches_name_what_they_wait_for(what, call):
+    """Branches the port lacks raise NotImplementedError naming the module
+    they wait for; a case whose module is now ported (what=None: mesh
+    seeds, autocp and makegraph on a wavefunction field, the tracer's
+    escape sphere) runs instead."""
+    if what is None:
+        call()
+        return
     with pytest.raises(NotImplementedError, match=what):
         call()
 
@@ -216,10 +233,82 @@ def test_spline_modes_no_longer_raise(mode):
     assert tuple(gf.shape) == (3, 1) and tuple(h6.shape) == (6, 1)
 
 
-def _wfn_system():
-    s = _grid_system()
-    s.ref.type = "wfn"
+H2_MOLDEN = """[Molden Format]
+[Atoms] AU
+H 1 1 0.0 0.0 0.0
+H 2 1 0.0 0.0 1.4
+[GTO]
+1 0
+ s 3 1.00
+  3.42525091 0.15432897
+  0.62391373 0.53532814
+  0.16885540 0.44463454
+
+2 0
+ s 3 1.00
+  3.42525091 0.15432897
+  0.62391373 0.53532814
+  0.16885540 0.44463454
+
+[MO]
+Sym= A1
+Ene= -0.578
+Spin= Alpha
+Occup= 2.0
+  1 0.54893404
+  2 0.54893404
+"""
+
+
+def _molden_path():
+    import tempfile
+
+    p = os.path.join(tempfile.mkdtemp(), "h2.molden")
+    with open(p, "w") as fh:
+        fh.write(H2_MOLDEN)
+    return p
+
+
+def _molecule(device="cpu"):
+    """H2/STO-3G from a molden file: molecular cell, wfn field 1."""
+    p = _molden_path()
+    s = System.from_structure(p, device=device)
+    s.load_field(p)
     return s
+
+
+@pytest.mark.parametrize("entry", ["from_structure", "field", "qtree",
+                                   "becke_mesh", "molcalc_nelec",
+                                   "wfn-autocp", "rho_eval",
+                                   "trace_paths_screened"])
+def test_molecular_entry_points_default_to_cuda(monkeypatch, entry):
+    """The slice's entry points resolve their device as cuda when none is
+    given, and raise without it; with device="cpu" they run (the system
+    is built on the CPU before CUDA is taken away)."""
+    mol = _molecule()
+    grid = _grid_system()
+    w = mol.ref.wfn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "from_structure":
+            System.from_structure(_molden_path())
+        elif entry == "field":
+            Field.from_file(mol.crystal, _molden_path())
+        elif entry == "qtree":
+            qtree_integrate(System(crystal=grid.crystal, fields=grid.fields,
+                                   iref=1))
+        elif entry == "becke_mesh":
+            becke_mesh(mol.crystal, "small")
+        elif entry == "molcalc_nelec":
+            molcalc_nelec(System(crystal=mol.crystal, fields=mol.fields,
+                                 iref=1))
+        elif entry == "wfn-autocp":
+            autocp(System(crystal=mol.crystal, fields=mol.fields, iref=1))
+        elif entry == "rho_eval":
+            w.rho_eval(np.zeros((1, 3)))
+        else:
+            trace_paths_screened(w, np.zeros((1, 3)))
+    assert isinstance(w, Wavefunction) and mol.device.type == "cpu"
 
 
 def test_explicit_cpu_device_and_dtypes():
