@@ -94,6 +94,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      screened tracer against the dense one on 64 seeds (status, termid,
      end points to 1e-8); last, launches per BS23 attempt of both new
      tracers;
+ 10. the README quick start at 256^3 (runs after phase 6, before phase 8):
+     the NaCl analogue written as a POSCAR with io/writers.write_poscar and
+     the slice phase's field as a CHGCAR (grid x volume, '%18.11E', five a
+     line, formatted vectorised, about 300 MB, in a temporary directory);
+     System.from_structure (the same cell to 1e-10 bohr, the same
+     positions, species and species_of in the writer's species order),
+     load_field (a contiguous cuda tensor within 1e-10 relative of the
+     in-memory field), autocp (counts (4, 12, 10, 2), Poincare-Hopf 0, the
+     grid phase's CPs within 1e-8 bohr up to a symmetry image), makegraph
+     (every bond path ends at two nuclei), intgrid(method="yt") (yt_pass 1
+     and yt_gs_pass 16 launches counted in this call, partition of unity
+     1e-8 e, each basin's charge within 1e-8 e of the slice phase's), and
+     a bincube round trip of the in-memory field, bitwise; the wall of
+     each step beside the card's name and power limit;
 then one JSON line of kernel records and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -435,6 +449,18 @@ def main_shape_phase(sl):
             f"f {gms[dt]:.4f} ms per sweep, bytes bound "
             f"{(K + 3 * P) * N * dt.itemsize / HBM_BYTES_PER_S * 1e3:.4f} ms")
     log(f"yt_gs_pass plain float32: {plain_gs:.4f} ms per sweep")
+    # the f64 pair against its plain version, and the plain pair's time
+    f64 = f3.to(torch.float64)
+    got64 = []
+    plain_gs64 = cuda_ms(lambda: got64.append(
+        pair(ops.yt_gs_pass_plain, chi64, f64)), 1, warm=0) / 2
+    bk64, k164, k264 = pair(ops.yt_gs_pass, chi64, f64)
+    bp64, p164, p264 = got64[0]
+    check((int(k164), int(k264)) == (int(p164), int(p264))
+          and torch.equal(bk64, bp64),
+          "yt_gs_pass f64 first pair differs from its plain version")
+    log(f"yt_gs_pass plain float64: {plain_gs64:.4f} ms per sweep; the "
+        f"kernel's f64 first pair bitwise equal to it")
 
     # the 16 sweeps of one adjoint solve, as _solve_sweep runs them: 4
     # pairs on f, the f64 residual by yt_pass, 4 pairs on the residual
@@ -471,7 +497,7 @@ def main_shape_phase(sl):
     out["yt_gs_pass"] = dict(
         max_abs_err=err, ms=gms[torch.float32], plain_ms=plain_gs,
         bound_ms=(K + 3 * P) * N * 4 / HBM_BYTES_PER_S * 1e3,
-        extra={"ms_f64": gms[torch.float64],
+        extra={"ms_f64": gms[torch.float64], "plain_ms_f64": plain_gs64,
                "tile": list(kc[0]["tile"]), "tiles": kc[0]["tiles"],
                "grid_barriers_first_pair": [c["grid_barriers"] for c in kc],
                "local_iters_block0_first_pair":
@@ -1395,6 +1421,212 @@ def bisect_flux_phase(s):
             "tol": tol, "sphere_rel": e, "flux_s": t_flux}
 
 
+def format_e18_11(vals):
+    """'%18.11E' of every float64 of vals (|exponent| < 100), vectorised:
+    an (N, 18) uint8 array. The 12 significant digits come from the value
+    scaled by a power of ten and rounded once, so the last digit may
+    differ from printf's exact decimal rounding (a relative error below
+    1e-11 either way)."""
+    import numpy as np
+
+    v = np.asarray(vals, dtype=np.float64).reshape(-1)
+    a = np.abs(v)
+    nz = a > 0
+    e = np.zeros(v.shape, dtype=np.int64)
+    e[nz] = np.floor(np.log10(a[nz])).astype(np.int64)
+    for _ in range(2):          # log10 may put the exponent one off
+        m = np.rint(a * 10.0 ** (11 - e))
+        e += (m >= 1e12).astype(np.int64)
+        e -= (nz & (m < 1e11)).astype(np.int64)
+    m = np.rint(a * 10.0 ** (11 - e)).astype(np.int64)
+    check(int(np.abs(e).max(initial=0)) < 100, "exponent of 3 digits")
+    out = np.empty((len(v), 18), dtype=np.uint8)
+    out[:, 0] = np.where(v < 0, ord("-"), ord(" "))
+    digits = (m[:, None] // 10 ** np.arange(11, -1, -1)) % 10 + ord("0")
+    out[:, 1] = digits[:, 0]
+    out[:, 2] = ord(".")
+    out[:, 3:14] = digits[:, 1:]
+    out[:, 14] = ord("E")
+    out[:, 15] = np.where(e < 0, ord("-"), ord("+"))
+    out[:, 16] = np.abs(e) // 10 + ord("0")
+    out[:, 17] = np.abs(e) % 10 + ord("0")
+    return out
+
+
+def chgcar_bytes(poscar_text: str, grid, volume: float) -> bytes:
+    """A VASP CHGCAR of grid (n1, n2, n3) on the POSCAR's cell: the POSCAR
+    text, a blank line, the dimensions, then grid * volume with the
+    first index fastest, five '%18.11E' values a line."""
+    import numpy as np
+
+    chars = format_e18_11(np.asarray(grid).reshape(-1, order="F") * volume)
+    nfull = len(chars) // 5
+    lines = np.empty((nfull, 91), dtype=np.uint8)
+    lines[:, :90] = chars[:nfull * 5].reshape(nfull, 90)
+    lines[:, 90] = ord("\n")
+    tail = chars[nfull * 5:].tobytes()
+    return ((poscar_text.rstrip("\n") + "\n\n"
+             + " ".join(map(str, np.shape(grid)))
+             + "\n").encode() + lines.tobytes()
+            + (tail + b"\n" if tail else b""))
+
+
+def match_cps(crystal, got, ref, tol):
+    """Pair each CP of list `got` with one of `ref` of the same type and
+    multiplicity at the least distance over the symmetry images; returns
+    the largest such distance (bohr). Fails on a CP with no partner."""
+    import numpy as np
+
+    sg = crystal.spacegroup
+    free = list(range(len(ref["typ"])))
+    dmax = 0.0
+    for i in range(len(got["typ"])):
+        cand = [j for j in free if ref["typ"][j] == got["typ"][i]
+                and ref["mult"][j] == got["mult"][i]]
+        check(cand, f"CP {i} (type {got['typ'][i]}) has no partner")
+        d = [float(crystal.distmat(got["x"][i], (sg.rotations @ ref["x"][j]
+                                                 + sg.translations)
+                                   % 1.0).min()) for j in cand]
+        k = int(np.argmin(d))
+        free.remove(cand[k])
+        dmax = max(dmax, d[k])
+    check(not free, f"{len(free)} CPs of the reference list unmatched")
+    check(dmax <= tol, f"CP positions differ by {dmax:.3e} bohr")
+    return dmax
+
+
+def quickstart_phase(sl, card):
+    """Phase 10: the README quick start at 256^3 on the card. The POSCAR
+    of the NaCl analogue and a CHGCAR of the slice phase's field are
+    written, then System.from_structure -> load_field -> autocp ->
+    makegraph -> intgrid(method="yt") run on them and are held against
+    the in-memory runs of phases 4 and 6; last, a bincube round trip."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch import System
+    from critic2_tpu_torch.analysis.autocp import autocp, makegraph
+    from critic2_tpu_torch.analysis.integration import intgrid
+    from critic2_tpu_torch.convert import cplist_to_arrays, crystal_to_arrays
+    from critic2_tpu_torch.io.writers import write_poscar
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    c0 = nacl_crystal()
+    g0 = sl["system"].ref.grid
+    n = N_SLICE
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        poscar = os.path.join(tmp, "POSCAR")
+        chgcar = os.path.join(tmp, "CHGCAR")
+
+        def write():
+            write_poscar(c0, poscar)
+            with open(poscar) as fh:
+                text = fh.read()
+            with open(chgcar, "wb") as fh:
+                fh.write(chgcar_bytes(text, g0.f.cpu().numpy(), c0.volume))
+
+        _, walls["write_s"] = wall_s(write)
+        size = os.path.getsize(chgcar)
+        log(f"quick start: wrote POSCAR and a {n}^3 CHGCAR of {size} bytes "
+            f"in {walls['write_s']:.3f} s")
+
+        # 2. the structure: the writer lists the atoms species by species
+        s, walls["from_structure_s"] = wall_s(
+            lambda: System.from_structure(poscar))
+        got, ref = crystal_to_arrays(s.crystal), crystal_to_arrays(c0)
+        order = np.argsort(ref["species_of"], kind="stable")
+        dcell = float(np.abs(got["m_x2c"] - ref["m_x2c"]).max())
+        check(dcell <= 1e-10, f"POSCAR cell differs by {dcell:.3e} bohr")
+        check(np.array_equal(got["x_frac"], ref["x_frac"][order]),
+              "POSCAR fractional positions differ")
+        check(got["species"] == ref["species"] and np.array_equal(
+            got["species_of"], ref["species_of"][order]),
+            f"POSCAR species {got['species']} {got['species_of']}")
+        check(s.device.type == "cuda", f"system on {s.device}")
+
+        # 3. the grid
+        fid, walls["load_field_s"] = wall_s(lambda: s.load_field(chgcar))
+        f = s.ref.grid.f
+        check(fid == 1 and s.iref == 1, f"CHGCAR loaded as field {fid}")
+        check(f.is_cuda and f.is_contiguous()
+              and tuple(f.shape) == (n,) * 3
+              and f.dtype == torch.float64,
+              f"CHGCAR grid {tuple(f.shape)} {f.dtype} on {f.device}, "
+              f"contiguous {f.is_contiguous()}")
+        drel = rel_err(f, g0.f)
+        check(drel <= 1e-10, f"CHGCAR grid differs by {drel:.3e} relative")
+        log(f"quick start: from_structure {walls['from_structure_s']:.3f} "
+            f"s, load_field {walls['load_field_s']:.3f} s; grid "
+            f"{tuple(f.shape)} contiguous on {f.device}, max relative "
+            f"difference from the in-memory field {drel:.3e}")
+
+        # 4. critical points and bond paths
+        cpl, walls["autocp_s"] = wall_s(lambda: autocp(s))
+        counts = tuple(cpl.counts())
+        check(counts == (4, 12, 10, 2) and cpl.poincare_hopf() == 0,
+              f"quick start autocp counts {counts}, Poincare-Hopf "
+              f"{cpl.poincare_hopf()}")
+        dcp = match_cps(s.crystal, cplist_to_arrays(cpl),
+                        cplist_to_arrays(sl["cpl"]), 1e-8)
+        _, walls["makegraph_s"] = wall_s(lambda: makegraph(s, cpl))
+        bonds = [cp for cp in cpl.cps if cp.typ == -1]
+        check(bonds and all(cp.ipath is not None and min(cp.ipath) >= 0
+                            and all(cpl.cps[i].isnuc for i in cp.ipath)
+                            for cp in bonds),
+              "quick start: a bond path does not end at two nuclei")
+        log(f"quick start: autocp {walls['autocp_s']:.3f} s, counts "
+            f"{counts}, Poincare-Hopf 0, CPs within {dcp:.3e} bohr of the "
+            f"grid phase's (up to a symmetry image); makegraph "
+            f"{walls['makegraph_s']:.3f} s, {len(bonds)} bond points, every "
+            f"bond path ends at two nuclei")
+
+        # 5. integration; the launches counted in this call alone
+        ops.reset_launches()
+        res, walls["intgrid_s"] = wall_s(lambda: intgrid(s, method="yt"))
+        launches = dict(ops.launches)
+        check(launches == {"yt_pass": 1, "yt_gs_pass": 16},
+              f"quick start intgrid launches {launches}")
+        dv = c0.volume / n ** 3
+        q = np.array([r.pop for r in res.rows])
+        punity = abs(q.sum() - float(f.sum()) * dv)
+        check(punity <= 1e-8, f"quick start partition of unity {punity:.3e}")
+        q_slice = {r.atom: r.pop for r in sl["intres"].rows}
+        check(sorted(r.atom for r in res.rows) == sorted(q_slice) == [0, 1,
+                                                                     2, 3],
+              "quick start basins differ from the slice phase's")
+        dq = max(abs(r.pop - q_slice[int(order[r.atom])]) for r in res.rows)
+        check(dq <= 1e-8, f"quick start charges differ by {dq:.3e} e")
+        log(f"quick start: intgrid {walls['intgrid_s']:.3f} s, launches "
+            f"{launches}, partition of unity {punity:.3e} e, per-basin "
+            f"|q - q(slice phase)| max {dq:.3e} e")
+        log(res.table())
+
+        # 6. bincube round trip of the in-memory field
+        cube = os.path.join(tmp, "rho.bincube")
+        _, walls["bincube_write_s"] = wall_s(
+            lambda: g0.write_bincube(cube, crystal=s.crystal))
+        fb, walls["bincube_read_s"] = wall_s(lambda: s.load_field(cube))
+        same = torch.equal(s.fields[fb].grid.f, g0.f)
+        check(same and s.fields[fb].grid.f.is_cuda,
+              "bincube round trip is not bitwise equal")
+        s.unload_field(fb)
+        log(f"quick start: bincube of {os.path.getsize(cube)} bytes written "
+            f"in {walls['bincube_write_s']:.3f} s, read back in "
+            f"{walls['bincube_read_s']:.3f} s, bitwise equal")
+    log(f"quick start walls on {card}: " + ", ".join(
+        f"{k[:-2]} {v:.3f} s" for k, v in walls.items()))
+    out = {"walls_s": walls, "chgcar_bytes": size, "grid_rel_diff": drel,
+           "cp_dmax_bohr": dcp, "dq_vs_slice_e": dq, "punity_e": punity,
+           "counts": list(counts), "launches": launches}
+    log(json.dumps({"quickstart": out}))
+    del s, res, cpl, f
+    torch.cuda.empty_cache()
+    return out
+
+
 def path_phase(sl, grid_out, profile):
     """Phase 7b-f on the slice phase's system; the launch counts are reset
     before and read after (no kernel of the port lies on these parts)."""
@@ -1809,6 +2041,9 @@ def main() -> int:
     grid_out = grid_phase(sl, args.profile)
     log(f"grid path phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    qs = quickstart_phase(sl, card.splitlines()[0])
+    log(f"quick-start phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     q = qtree_phase(sl, dev)
     log(f"qtree phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1831,6 +2066,7 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
             "launches_multipoles": mp["launches"][name],
+            "launches_quickstart": qs["launches"][name],
             **m.get("extra", {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

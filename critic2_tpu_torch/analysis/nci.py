@@ -159,10 +159,6 @@ def nciplot(system, oname: str | None = None, outdir: str | None = None,
     another).
     """
     dev = resolve_device(system.device)
-    if molmotif:
-        raise NotImplementedError(
-            "molmotif waits for crystal/fragment.py, which is not ported "
-            "to the torch package yet")
     if dimcut is None:
         dimcut = 2.0 if isden else 1.0
     if dimplot is None:
@@ -269,15 +265,18 @@ def nciplot(system, oname: str | None = None, outdir: str | None = None,
                    comment1="reduced density gradient")
         np.savetxt(root + ".dat", res.dat, fmt="%15.7E")
         _write_vmd(root, oname, rhoplot, dimplot)
-        _write_cell_xyz(c, root + "_cell.xyz", x0, xmat, (n1, n2, n3))
+        _write_cell_xyz(c, root + "_cell.xyz", x0, xmat,
+                        (n1, n2, n3), molmotif=molmotif)
         res.files = [root + s for s in ("-dens.cube", "-grad.cube", ".dat",
                                         ".vmd", "_cell.xyz")]
     return res
 
 
-def _write_cell_xyz(c, path, x0, xmat, nstep, margin: float = 1.0):
+def _write_cell_xyz(c, path, x0, xmat, nstep, molmotif: bool = False,
+                    margin: float = 1.0):
     """Geometry for the NCI visualization: atoms (all lattice images)
-    inside the plot box + `margin` bohr (reference _cell.xyz emission,
+    inside the plot box + `margin` bohr; MOLMOTIF completes molecules
+    crossing the box boundary (reference _cell.xyz emission,
     src/nci@proc.f90:625-668)."""
     hi = np.asarray(x0) + np.asarray(xmat) @ np.asarray(nstep, float)
     lo = np.minimum(np.asarray(x0), hi) - margin
@@ -298,6 +297,20 @@ def _write_cell_xyz(c, path, x0, xmat, nstep, margin: float = 1.0):
                 ok = np.all((xc > lo) & (xc < hi), axis=1)
                 for a in np.where(ok)[0]:
                     kept.add((int(a), i, j, k))
+    if molmotif and not c.ismolecule:
+        from ..crystal.fragment import list_molecules
+
+        frags, _ = list_molecules(c)
+        for fr in frags:
+            mem = list(zip(np.asarray(fr.at_idx, dtype=int),
+                           np.asarray(fr.lvec, dtype=int)))
+            for a0, i, j, k in list(kept):
+                for am, lvm in mem:
+                    if am == a0:
+                        base = np.array([i, j, k]) - lvm
+                        for a2, lv2 in mem:
+                            kept.add((int(a2), *(base + lv2)))
+                        break
     rows = []
     for a, i, j, k in sorted(kept):
         xc = (xf[a] + np.array([i, j, k])) @ m.T

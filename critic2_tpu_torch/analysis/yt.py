@@ -325,10 +325,11 @@ def _as_grid(rho, device, dtype=None):
                            device=resolve_device(device))
 
 
-def yt_integrate(crystal, rho, device=None):
+def yt_integrate(crystal, rho, block: int | None = None, *, device=None):
     """Run the YT decomposition of grid `rho` ((n1,n2,n3) tensor or array).
 
-    Returns a YTResult; `integrate` gives the basin sums."""
+    Returns a YTResult; `integrate` gives the basin sums. `block` is
+    accepted and ignored, as the JAX package ignores it."""
     rho3 = _as_grid(rho, device)
     shape = tuple(int(s) for s in rho3.shape)
     offs_np, wts_np = _grid_ws_neighbors(crystal, shape)

@@ -2,8 +2,8 @@
 
 Role of the cell-metric part of the reference's crystal class
 (src/crystalmod.f90:66-79 and tools_math m_x2c_from_cellpar): conversions
-between cell parameters and the crystallographic-to-Cartesian matrix, and the cell
-volume.
+between cell parameters and the crystallographic-to-Cartesian matrix, cell
+volume and metric tensors.
 
 Conventions: column-vector matrices. ``m_x2c`` has the lattice vectors as
 columns, so r_cart = m_x2c @ x_frac; lengths in bohr, angles in degrees.
@@ -53,3 +53,24 @@ def cellpar_from_m_x2c(m: np.ndarray):
 
 def cell_volume(m_x2c: np.ndarray) -> float:
     return float(abs(np.linalg.det(m_x2c)))
+
+
+def metric_tensor(m_x2c: np.ndarray) -> np.ndarray:
+    """G = m^T m; fractional distance form d^2 = dx^T G dx."""
+    return m_x2c.T @ m_x2c
+
+
+def reciprocal_vectors(m_x2c: np.ndarray) -> np.ndarray:
+    """Reciprocal lattice vectors (columns), with the 2*pi factor.
+
+    Standard convention b1 = 2*pi/V a2 x a3 (the reference FFT operators,
+    src/grid3mod@proc.f90:1104-1108, use the opposite sign, which is
+    irrelevant for the quadratic forms G_i G_j they feed).
+    """
+    a1, a2, a3 = m_x2c[:, 0], m_x2c[:, 1], m_x2c[:, 2]
+    vol = abs(np.linalg.det(m_x2c))
+    b = np.empty((3, 3))
+    b[:, 0] = np.cross(a2, a3)
+    b[:, 1] = np.cross(a3, a1)
+    b[:, 2] = np.cross(a1, a2)
+    return 2.0 * np.pi / vol * b

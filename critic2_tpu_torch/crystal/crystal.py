@@ -5,9 +5,9 @@ coordinate frames (input-crystallographic / Delaunay-reduced / Cartesian),
 atom lists, Wigner-Seitz cell, shortest-vector searches and the
 periodic-image environment that feeds promolecular evaluation.
 
-Host code (NumPy), a copy of what the ported analyses need from the JAX
-package's crystal module. Space-group naming and Wyckoff letters are not
-ported yet and raise NotImplementedError.
+Host code (NumPy), a copy of the JAX package's crystal module: space-group
+naming (crystal/spgs.py), Wyckoff letters (crystal/wyckoff.py) and the
+nearest-atom lists (scipy's cKDTree) included.
 """
 from __future__ import annotations
 
@@ -189,14 +189,38 @@ class Crystal:
         return self._sg
 
     def spg_name(self):
-        raise NotImplementedError(
-            "space-group naming waits for crystal/spgs.py, which is not "
-            "ported to the torch package yet")
+        """Hermann-Mauguin symbol + ITA number of the detected space
+        group, or (None, 0) when the setting is not in the database
+        (role of the reference spgs naming, src/spgs.f90:30-32; the
+        reference itself never names DETECTED groups)."""
+        if getattr(self, "_spgname", None) is None:
+            from .spgs import identify_from_ops
+
+            sg = self.spacegroup
+            st = identify_from_ops(sg.rotations, sg.translations)
+            self._spgname = (st.short, st.ita_number) if st else (None, 0)
+        return self._spgname
 
     def wyckoffs(self, symprec: float = 1e-4):
-        raise NotImplementedError(
-            "Wyckoff letters wait for crystal/wyckoff.py, which is not "
-            "ported to the torch package yet")
+        """Wyckoff letters of the nonequivalent atoms (spglib
+        site-symmetry database; see crystal/wyckoff.py). Returns a list
+        aligned with spacegroup.irr_idx, or None when the group/setting
+        cannot be resolved."""
+        if getattr(self, "_wyck", None) is None:
+            from .wyckoff import wyckoff_letters
+
+            _, ita = self.spg_name()
+            if not ita:
+                self._wyck = (None,)
+            else:
+                sg = self.spacegroup
+                reps = np.asarray(sg.irr_idx)
+                letters, _ = wyckoff_letters(
+                    sg.rotations, sg.translations,
+                    np.asarray(self.x_frac)[reps], ita, self.m_x2c,
+                    symprec=symprec)
+                self._wyck = (letters,)
+        return self._wyck[0]
 
     @property
     def ws(self) -> WignerSeitz:
@@ -227,6 +251,64 @@ class Crystal:
         fbuf = rmax / widths
         ok = np.all((pos > -fbuf - 1e-9) & (pos < 1.0 + fbuf + 1e-9), axis=1)
         return cart[ok], spc[ok], cidx[ok]
+
+    # ------------------------------------------------------------------
+    # covalent connectivity (asterisms)
+    # ------------------------------------------------------------------
+    def list_near_atoms(self, x, icrd=param.ICRD_CRYS, up2d: float = None,
+                        up2n: int = None):
+        """Atoms near point(s) x, sorted by distance (role of the
+        reference environ list_near_atoms, src/environmod@proc.f90:895,
+        with its up2d / up2n cutoff modes). The spatial hash becomes a
+        cKDTree over the periodic image environment, cached per radius.
+
+        Returns (eid (list per point), dist, lvec): cell-atom indices,
+        distances and integer lattice vectors, nearest first."""
+        from scipy.spatial import cKDTree
+
+        x = np.asarray(x, dtype=float)
+        single = x.ndim == 1
+        x = np.atleast_2d(x)
+        if icrd == param.ICRD_CRYS:
+            x = self.x2c(x)
+        if up2d is None:
+            if up2n is None:
+                raise ValueError("need up2d or up2n")
+            # conservative search radius from the number of atoms asked
+            vol_per_atom = self.volume / max(self.ncel, 1)
+            up2d_eff = 2.0 * (up2n * vol_per_atom) ** (1.0 / 3.0) + 2.0
+        else:
+            up2d_eff = up2d
+        key = round(float(up2d_eff), 6)
+        cache = getattr(self, "_nn_cache", None)
+        if cache is None or cache[0] < key:
+            pos, spc, cidx = self.atomic_environment(up2d_eff)
+            tree = cKDTree(pos)
+            self._nn_cache = (key, tree, pos, cidx)
+        _, tree, pos, cidx = self._nn_cache
+        out_eid, out_d, out_lv = [], [], []
+        frac = self.c2x(pos)
+        for p in x:
+            if up2n is not None:
+                d, idx = tree.query(p, k=min(up2n, len(pos)))
+                d = np.atleast_1d(d)
+                idx = np.atleast_1d(idx)
+                if up2d is not None:
+                    sel = d <= up2d
+                    d, idx = d[sel], idx[sel]
+            else:
+                idx = np.asarray(sorted(tree.query_ball_point(p, up2d)),
+                                 dtype=int)
+                d = np.linalg.norm(pos[idx] - p, axis=1)
+                order = np.argsort(d)
+                d, idx = d[order], idx[order]
+            out_eid.append(cidx[idx])
+            out_d.append(d)
+            out_lv.append(np.rint(frac[idx]
+                                  - self.x_frac[cidx[idx]]).astype(int))
+        if single:
+            return out_eid[0], out_d[0], out_lv[0]
+        return out_eid, out_d, out_lv
 
     # ------------------------------------------------------------------
     # covalent connectivity (asterisms)

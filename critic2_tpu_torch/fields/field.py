@@ -4,8 +4,9 @@ Role of the reference fieldmod (src/fieldmod.f90): a field is a crystal
 plus one evaluation backend, evaluated through a single dispatch `grd`
 that returns value, gradient, Hessian and derived scalars for a whole
 batch of points (reference grd, src/fieldmod@proc.f90:613-845). The port
-carries the grid, promolecular and molecular-wavefunction (wfn) types;
-the others (wien, elk, pi, dftb, ghost) raise NotImplementedError.
+carries the grid (every grid format but pwc), promolecular and
+molecular-wavefunction (wfn) types; the others (wien, elk, pi, dftb,
+ghost) raise NotImplementedError naming the module they wait for.
 
 Pipeline per batch (mirrors the reference):
   1. Cartesian -> fractional, wrap to the main cell (periodic)
@@ -16,6 +17,7 @@ Pipeline per batch (mirrors the reference):
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field as dfield
 
 import numpy as np
@@ -78,24 +80,34 @@ class Field:
 
     @classmethod
     def from_file(cls, crystal, path: str, fmt: str | None = None,
-                  name: str = "", device=None, **kw) -> "Field":
+                  name: str = "", *, device=None, **kw) -> "Field":
+        """A field from a file: a grid format (a VASP charge grid is
+        divided by the crystal's volume, as the reference does) or a
+        molecular wavefunction, on `device` (cuda by default)."""
         if fmt is None:
             try:
                 fmt = detect_grid_format(path)
             except ValueError:
                 fmt = None
-        if fmt is None:
-            from ..crystal.seed import is_wfn_path
-
-            if is_wfn_path(path):
-                return cls.from_wavefunction(crystal, path, name=name,
-                                             device=device, **kw)
-        if fmt != "cube":
+        if fmt in ("cube", "bincube", "vasp", "xsf", "qub", "elk",
+                   "siesta", "pwc", "abinit"):
+            omega = crystal.volume if fmt == "vasp" else None
+            g = Grid3.from_file(path, fmt=fmt, omega=omega, device=device)
+            return cls.from_grid(crystal, g, name=name or path, **kw)
+        base = os.path.basename(path).upper()
+        module = None
+        if base.startswith("STATE") and base.endswith(".OUT"):
+            module = "fields/elk.py"
+        elif base == "DETAILED.XML" or fmt == "dftb":
+            module = "fields/dftb.py"
+        elif base.endswith((".CLMSUM", ".CLMUP", ".CLMDN")) or fmt == "wien":
+            module = "fields/wien.py"
+        if module:
             raise NotImplementedError(
-                f"field format {fmt or path} is not ported to the torch "
-                "package yet (cube and molecular wavefunctions only)")
-        g = Grid3.from_file(path, fmt=fmt, device=device)
-        return cls.from_grid(crystal, g, name=name or path, **kw)
+                f"the field of {path} waits for {module}, whose evaluator "
+                "is not ported to the torch package yet")
+        return cls.from_wavefunction(crystal, path, name=name,
+                                     device=device, **kw)
 
     @classmethod
     def from_wavefunction(cls, crystal, wfn, name: str = "", device=None,

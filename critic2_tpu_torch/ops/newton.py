@@ -90,8 +90,10 @@ def _newton_run(eval_fn, xT, gfnormeps, maxit, chunk, compact_min):
 
 
 def newton_batch(eval_fn, x0, gfnormeps: float = 1e-12, maxit: int = 200,
-                 chunk: int = 10, compact: bool = True):
-    """Run Newton iterations from a batch of Cartesian seeds.
+                 chunk: int = 10, loop: str | None = None,
+                 compact: bool = True):
+    """Run Newton iterations from a batch of Cartesian seeds. `loop` is
+    accepted and ignored: the port has one loop form.
 
     eval_fn: SoA evaluator (3, N) -> (f (N,), gf (3, N), h6 (6, N)) on
     the device of x0. x0: (N, 3) Cartesian seeds (tensor).

@@ -202,9 +202,11 @@ def trace_paths(eval_fn, x0, iup: int = 1, targets=None, rterm=None,
                 hini: float = 0.3, maxerr: float = 1e-4,
                 gradeps: float = 1e-7, mstep: int = 4000,
                 m_c2x=None, molborder=None, h0=None, chunk: int = 16,
-                compact: bool = True, escape=None, plen0=None):
+                loop: str | None = None, compact: bool = True,
+                escape=None, plen0=None):
     """Trace gradient paths from Cartesian seeds x0 (N, 3), a float64
-    tensor on the device the evaluator lives on.
+    tensor on the device the evaluator lives on. `loop` is accepted and
+    ignored: the port has one loop form.
 
     eval_fn: SoA evaluator (3, N) -> (f, gf (3, N), h6).
     iup: +1 uphill (to maxima), -1 downhill.
@@ -267,7 +269,8 @@ def trace_paths(eval_fn, x0, iup: int = 1, targets=None, rterm=None,
 def trace_paths_recorded(eval_fn, x0, nrec: int = 400, iup: int = 1,
                          targets=None, rterm=None, hini: float = 0.3,
                          maxerr: float = 1e-4, gradeps: float = 1e-7,
-                         m_c2x=None, molborder=None, chunk: int = 50):
+                         m_c2x=None, molborder=None, chunk: int = 50,
+                         loop: str | None = None):
     """Like trace_paths but records the trajectory (host-side pruning of
     repeated tail points). Returns (paths list of (L_i, 3) numpy arrays,
     status, termid as numpy arrays). Runs nrec bounded attempts; use for

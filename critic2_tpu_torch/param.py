@@ -1,4 +1,4 @@
-"""Element names and the element tables the port's slice uses.
+"""Constants, element names and the element tables the port uses.
 
 The numeric tables are data, not code: they are read from the JAX
 package's ``critic2_tpu/data/element_tables.npz`` by file path (no
@@ -16,10 +16,12 @@ DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
 
 BOHR_TO_ANGSTROM = 0.529177210903
 ANGSTROM_TO_BOHR = 1.0 / BOHR_TO_ANGSTROM
+PI = np.pi
 
 # coordinate-system selectors (reference icrd_*, src/param.f90)
 ICRD_CART = 0
 ICRD_CRYS = 1
+ICRD_RCRYS = 2
 
 ELEMENTS = [
     "X",
@@ -36,6 +38,19 @@ ELEMENTS = [
     "Md", "No", "Lr", "Rf", "Db", "Sg", "Bh", "Hs", "Mt", "Ds",
     "Rg", "Cn", "Nh", "Fl", "Mc", "Lv", "Ts", "Og",
 ]
+SYMBOL_TO_Z = {s.lower(): z for z, s in enumerate(ELEMENTS)}
+
+
+def symbol_to_z(name: str) -> int:
+    """Atomic number from an element symbol or a label like 'Fe1'/'FE_2'.
+
+    Equivalent in role to the reference's zatguess (src/tools_io.f90).
+    """
+    s = "".join(ch for ch in name.strip() if ch.isalpha())[:2]
+    z = SYMBOL_TO_Z.get(s.lower())
+    if z is None and s:
+        z = SYMBOL_TO_Z.get(s[0].lower())
+    return z if z is not None else 0
 
 
 def z_to_symbol(z: int) -> str:
@@ -59,9 +74,29 @@ def cutrad(z: int) -> float:
     return 0.0
 
 
+_COVRAD_OVERRIDE: dict = {}
+
+
 def covalent_radius(z: int) -> float:
-    """Covalent radius in bohr (role of reference src/param.F90 atmcov)."""
+    """Covalent radius in bohr (role of reference src/param.F90 atmcov).
+    Per-element overrides come from the RADII settings keyword
+    (reference atmcov assignment, src/global@proc.f90:596-619)."""
+    if z in _COVRAD_OVERRIDE:
+        return _COVRAD_OVERRIDE[z]
     t = _load_tables()["atmcov"]
+    if 1 <= z <= len(t):
+        return float(t[z - 1])
+    return 0.0
+
+
+def set_covalent_radius(z: int, r_bohr: float) -> None:
+    """Override an element's covalent radius (RADII keyword)."""
+    _COVRAD_OVERRIDE[int(z)] = float(r_bohr)
+
+
+def atomic_mass(z: int) -> float:
+    """Atomic mass in amu (reference src/param.F90 atmass table)."""
+    t = _load_tables()["atmass"]
     if 1 <= z <= len(t):
         return float(t[z - 1])
     return 0.0

@@ -24,31 +24,33 @@ class System:
     zpsp: dict = dfield(default_factory=dict)     # system-level ZPSP
 
     @classmethod
-    def from_structure(cls, crystal, device=None, border: float = 10.0):
-        """System around a Crystal, or around the molecule of a
-        wavefunction file (.wfn, .wfx, .fchk/.fch/.fck, .molden; embedded
-        in a cell with `border` bohr of vacuum), with the promolecular
+    def from_structure(cls, path_or_crystal, *, device=None, **kw):
+        """System around a Crystal or a structure file (any format of
+        crystal/seed.read_structure, which takes `kw`; a molecule of a
+        wavefunction file - .wfn, .wfx, .fchk/.fch/.fck, .molden - takes
+        `border=`, the bohr of vacuum around it), with the promolecular
         density loaded as field 0. Runs on cuda unless `device` says
-        otherwise. Load the wavefunction itself with load_field(path)."""
+        otherwise. Load a grid or the wavefunction itself with
+        load_field(path)."""
         from .crystal.crystal import Crystal
-        from .crystal.seed import is_wfn_path, read_wfn_structure
+        from .crystal.seed import (is_wfn_path, read_structure,
+                                   read_wfn_structure)
         from .fields.field import Field
 
-        if isinstance(crystal, str) and is_wfn_path(crystal):
-            crystal = read_wfn_structure(crystal, border=border).to_crystal()
-        if not isinstance(crystal, Crystal):
-            raise NotImplementedError(
-                "structure readers other than the molecular wavefunction "
-                "formats are not ported to the torch package yet; pass a "
-                "Crystal")
-        s = cls(crystal=crystal, device=resolve_device(device))
-        s.fields[0] = Field.promolecular(crystal, name="rho0",
-                                         device=s.device)
+        if isinstance(path_or_crystal, Crystal):
+            c = path_or_crystal
+        elif is_wfn_path(path_or_crystal):
+            kw.pop("mol", None)
+            c = read_wfn_structure(path_or_crystal, **kw).to_crystal()
+        else:
+            c = read_structure(path_or_crystal, **kw)
+        s = cls(crystal=c, device=resolve_device(device))
+        s.fields[0] = Field.promolecular(c, name="rho0", device=s.device)
         return s
 
     @classmethod
     def from_wavefunction(cls, wfn, border: float = 10.0, name: str = "",
-                          device=None):
+                          *, device=None):
         """System around an in-memory Wavefunction (no file): embeds the
         molecule in a border-padded cell (reference molx0/molborder
         semantics) and loads the wfn as field 1, the reference. Species
@@ -66,7 +68,7 @@ class System:
             species_of=np.array([spmap[int(z)] for z in zs]),
             species=[Species(param.ELEMENTS[z] if z < len(param.ELEMENTS)
                              else f"Z{z}", z) for z in uniq],
-            border=border, name=name or wfn.source)
+            ismolecule=True, border=border, name=name or wfn.source)
         c = seed.to_crystal()
         s = cls.from_structure(c, device=device)
         s.load_field(Field.from_wavefunction(c, wfn, name=name or "wfn",
@@ -112,6 +114,38 @@ class System:
     def field(self, fid):
         return self.fields[self.resolve_fid(fid)]
 
+    def set_reference(self, fid):
+        self.iref = self.resolve_fid(fid)
+
+    def unload_field(self, fid):
+        fid = self.resolve_fid(fid)
+        del self.fields[fid]
+        self.aliases = {k: v for k, v in self.aliases.items() if v != fid}
+        if self.iref == fid:
+            self.iref = max((k for k in self.fields if isinstance(k, int)
+                             and k != 0), default=None)
+
+    def identify_fragment_from_xyz(self, path: str):
+        """Atom indices (0-based, cell list) matching the positions in an
+        xyz file (angstrom cartesian; reference
+        identify_fragment_from_xyz, src/fragmentmod@proc.f90)."""
+        from . import param
+
+        idx = []
+        with open(path) as fh:
+            nat = int(fh.readline().split()[0])
+            fh.readline()
+            for _ in range(nat):
+                t = fh.readline().split()
+                xc = np.array([float(v) for v in t[1:4]]) \
+                    * param.ANGSTROM_TO_BOHR
+                i, _ = self.crystal.identify_atom(
+                    xc, icrd=param.ICRD_CART, distmax=1e-2)
+                if i < 0:
+                    raise ValueError(f"fragment atom not in crystal: {t}")
+                idx.append(int(i))
+        return np.asarray(idx, dtype=int)
+
     def load_field_as(self, kind: str, src=None, src2=None, fid=None,
                       name=None, shape=None, isry: bool = False,
                       fragment=None):
@@ -124,7 +158,7 @@ class System:
         difference of fields src, src2), 'core' (promolecular core
         density grid using the system zpsp), 'promolecular' (promolecular
         density grid, optionally of a fragment given as cell-atom
-        indices), 'copy' (duplicate of field src)."""
+        indices or as an xyz file), 'copy' (duplicate of field src)."""
         import copy
 
         from .fields.field import Field
@@ -164,12 +198,10 @@ class System:
             f = self._promolecular_grid_field(shape, zpsp=self.zpsp,
                                               name=name or "<core>")
         elif kind == "promolecular":
-            if isinstance(fragment, str):
-                raise NotImplementedError(
-                    "fragment= given as an xyz file waits for "
-                    "crystal/fragment.py, which is not ported to the torch "
-                    "package yet; pass the cell-atom indices")
-            frag = None if fragment is None else np.asarray(fragment)
+            frag = None
+            if fragment is not None:
+                frag = self.identify_fragment_from_xyz(fragment) \
+                    if isinstance(fragment, str) else np.asarray(fragment)
             f = self._promolecular_grid_field(
                 shape, fragment=frag, name=name or "<promolecular>")
         elif kind == "copy":

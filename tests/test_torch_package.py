@@ -1,6 +1,10 @@
 """Package rules of the torch port: no JAX, no import of the JAX package,
-CUDA by default with no silent CPU fallback, kernels built from source."""
+CUDA by default with no silent CPU fallback, kernels built from source,
+and the public signatures of the JAX package kept."""
 import ast
+import importlib
+import importlib.util
+import inspect
 import os
 import subprocess
 import sys
@@ -64,7 +68,7 @@ def _imported_roots(path):
 
 def test_no_jax_or_jax_package_import_anywhere():
     mods = list(_modules())
-    assert len(mods) >= 41
+    assert len(mods) >= 56
     assert not [p for p in mods if "_build" in p]
     bad = [(os.path.relpath(p, ROOT), r) for p in mods
            for r in _imported_roots(p) if r in FORBIDDEN]
@@ -84,6 +88,18 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import critic2_tpu_torch.analysis.molcalc\n"
             "import critic2_tpu_torch.analysis.qtree\n"
             "import critic2_tpu_torch.crystal.seed\n"
+            "import critic2_tpu_torch.crystal.fragment\n"
+            "import critic2_tpu_torch.crystal.library\n"
+            "import critic2_tpu_torch.crystal.spgs\n"
+            "import critic2_tpu_torch.crystal.sympg\n"
+            "import critic2_tpu_torch.crystal.transform\n"
+            "import critic2_tpu_torch.crystal.wyckoff\n"
+            "import critic2_tpu_torch.fields.elk\n"
+            "import critic2_tpu_torch.fields.qe\n"
+            "import critic2_tpu_torch.fields.wien\n"
+            "import critic2_tpu_torch.io.abinit\n"
+            "import critic2_tpu_torch.io.cif\n"
+            "import critic2_tpu_torch.io.writers\n"
             "import critic2_tpu_torch.fields.wfn\n"
             "import critic2_tpu_torch.analysis.surface\n"
             "import critic2_tpu_torch.io.graphics\n"
@@ -185,13 +201,22 @@ def _grid_system(mode=None):
     return s
 
 
+def _fragment_xyz():
+    """An xyz file holding the Na atom of _crystal(), at the origin."""
+    import tempfile
+
+    p = os.path.join(tempfile.mkdtemp(), "frag.xyz")
+    with open(p, "w") as fh:
+        fh.write("1\nNa\nNa 0.0 0.0 0.0\n")
+    return p
+
+
 @pytest.mark.parametrize("what, call", [
     (None, lambda: gen_seeds(_molecule().crystal, [Seed(typ="mesh")],
                              device="cpu")),
-    ("crystal/fragment.py",
-     lambda: nciplot(_grid_system(), molmotif=True)),
-    ("crystal/spgs.py", lambda: _crystal().spg_name()),
-    ("crystal/wyckoff.py", lambda: _crystal().wyckoffs()),
+    (None, lambda: nciplot(_grid_system(), molmotif=True)),
+    (None, lambda: _crystal().spg_name()),
+    (None, lambda: _crystal().wyckoffs()),
     (None, lambda: autocp(_molecule())),
     (None, lambda: makegraph(_molecule(), autocp(_molecule()))),
     (None,
@@ -203,17 +228,21 @@ def _grid_system(mode=None):
     ("arithmetic.py",
      lambda: basin_integral(_grid_system(), [0, 0, 0], expr="$1")),
     ("arithmetic.py", lambda: intgrid(_grid_system(), discard="$1 < 0")),
-    ("crystal/fragment.py",
-     lambda: _grid_system().load_field_as("promolecular",
-                                          fragment="frag.xyz")),
+    (None,
+     lambda: _grid_system().load_field_as("promolecular", shape=(4, 4, 4),
+                                          fragment=_fragment_xyz())),
+    ("fields/qe.py", lambda: Field.from_file(_crystal(), "x.pwc",
+                                             device="cpu")),
 ], ids=["mesh-seed", "molmotif", "spg_name", "wyckoffs", "wfn-autocp",
         "wfn-makegraph", "ode-escape", "sphere_integral-expr",
-        "basin_integral-expr", "intgrid-discard", "fragment-file"])
+        "basin_integral-expr", "intgrid-discard", "fragment-file",
+        "pwc-grid"])
 def test_unported_branches_name_what_they_wait_for(what, call):
     """Branches the port lacks raise NotImplementedError naming the module
     they wait for; a case whose module is now ported (what=None: mesh
     seeds, autocp and makegraph on a wavefunction field, the tracer's
-    escape sphere) runs instead."""
+    escape sphere, molmotif, space-group names, Wyckoff letters, a
+    fragment given as an xyz file) runs instead."""
     if what is None:
         call()
         return
@@ -339,3 +368,121 @@ def test_kernel_library_name_tracks_sources():
     for src in _ext.SOURCES.values():
         assert os.path.exists(os.path.join(_ext.CSRC, src))
     assert "-gencode=arch=compute_90a,code=sm_90a" in _ext.NVCC_FLAGS
+
+
+# Public names of both packages whose parameters still differ, each with
+# its reason: (JAX package module, qualified name) -> parameters the port
+# adds beyond device and generator.
+SIGNATURE_ALLOW = {
+    # the JAX package takes its float width from the x64 switch; PyTorch
+    # has none, so the caller names the dtype of the wave vectors
+    ("critic2_tpu.ops.fft", "gvectors"): {"dtype"},
+    # opt-in instrumentation: a dict the port fills with the wall of the
+    # traces, the cubature, the boundary and the spheres
+    ("critic2_tpu.analysis.qtree", "qtree_integrate"): {"stats"},
+}
+POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
+              inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+def _public_callables(mod):
+    """(qualified name, function) of the public functions and methods
+    that module `mod` defines itself."""
+    for name, obj in vars(mod).items():
+        if name.startswith("_") or \
+                getattr(obj, "__module__", None) != mod.__name__:
+            continue
+        if inspect.isfunction(obj):
+            yield name, obj
+        elif inspect.isclass(obj):
+            for mname, m in vars(obj).items():
+                if isinstance(m, (classmethod, staticmethod)):
+                    m = m.__func__
+                if not mname.startswith("_") and inspect.isfunction(m):
+                    yield f"{name}.{mname}", m
+
+
+def _module_pairs():
+    """(port module, JAX package module) for every port module whose
+    counterpart of the same path exists."""
+    for path in _modules():
+        rel = os.path.relpath(path, PKG)[:-3].replace(os.sep, ".")
+        rel = "" if rel == "__init__" else rel.replace(".__init__", "")
+        tname = "critic2_tpu_torch" + ("." + rel if rel else "")
+        rname = "critic2_tpu" + ("." + rel if rel else "")
+        if importlib.util.find_spec(rname) is not None:
+            yield tname, rname
+
+
+def _signature_fault(port_fn, ref_fn, allowed):
+    """Why port_fn's parameters do not keep ref_fn's, or None."""
+    tp = inspect.signature(port_fn).parameters
+    rp = inspect.signature(ref_fn).parameters
+    extra = [n for n in tp if n not in rp]
+    rpos = [n for n, p in rp.items() if p.kind in POSITIONAL]
+    tpos = [n for n, p in tp.items() if p.kind in POSITIONAL]
+    if [n for n in tp if n in rp] != list(rp):
+        return f"reference parameters {list(rp)} -> {list(tp)}"
+    if set(extra) - allowed:
+        return f"parameters of the port's own {sorted(set(extra) - allowed)}"
+    if tpos[:len(rpos)] != rpos:
+        return f"positional parameters {rpos} -> {tpos}"
+    return None
+
+
+def test_public_signatures_keep_the_reference_parameters():
+    """Every public function and method defined under the same qualified
+    name in both packages takes the JAX package's parameters, by name and
+    in order; a parameter it may pass by position sits at the same place
+    (so a positional argument never lands on a parameter of the port's
+    own). The port adds only device and generator, or what
+    SIGNATURE_ALLOW names with its reason."""
+    compared, bad = 0, []
+    used = set()
+    for tname, rname in _module_pairs():
+        ref = dict(_public_callables(importlib.import_module(rname)))
+        for qual, fn in _public_callables(importlib.import_module(tname)):
+            if qual not in ref:
+                continue
+            compared += 1
+            allowed = {"device", "generator"} | SIGNATURE_ALLOW.get(
+                (rname, qual), set())
+            if (rname, qual) in SIGNATURE_ALLOW:
+                used.add((rname, qual))
+            fault = _signature_fault(fn, ref[qual], allowed)
+            if fault:
+                bad.append(f"{rname}.{qual}: {fault}")
+    assert not bad, "\n".join(bad)
+    assert compared >= 200
+    assert used == set(SIGNATURE_ALLOW), "stale SIGNATURE_ALLOW entries"
+
+
+def _ref(crystal, rho, block=None, loop=None):
+    pass
+
+
+def _kept(crystal, rho, block=None, loop=None, *, device=None):
+    pass
+
+
+def _device_third(crystal, rho, device=None, block=None, loop=None):
+    pass
+
+
+def _loop_dropped(crystal, rho, block=None, device=None):
+    pass
+
+
+def _own_option(crystal, rho, block=None, loop=None, fast=False):
+    pass
+
+
+@pytest.mark.parametrize("port_fn, fault", [
+    (_kept, None), (_device_third, "positional"),
+    (_loop_dropped, "reference parameters"), (_own_option, "own")])
+def test_signature_check_sees_each_fault(port_fn, fault):
+    """The check catches the faults it guards against: a parameter of the
+    port's own where the reference has a positional one, a reference
+    parameter gone, an option the reference lacks."""
+    got = _signature_fault(port_fn, _ref, {"device", "generator"})
+    assert (got is None) if fault is None else (fault in got)
