@@ -108,6 +108,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      1e-8 e, each basin's charge within 1e-8 e of the slice phase's), and
      a bincube round trip of the in-memory field, bitwise; the wall of
      each step beside the card's name and power limit;
+ 11. the expression slice (runs after phase 9, before phase 7's
+     gradient-path parts). Grid leg, on the slice phase's 256^3 field:
+     load_field_expr("$1:l") at 256^3 (4,096 nodes against the CPU at the
+     card's coordinates, 1e-12 relative); a ghost 2*$1 at 131,072 points
+     off the node planes (value 1e-12, autograd gradient against central
+     differences within the 5e-6 relative bar); intgrid(method="yt")
+     with discard="$1 < 1e-3" and INTEGRABLE "$1" and "gtf(1)" (charges
+     within 1e-8 e of the slice phase's, the $1 integrable within 1e-8 e
+     of the charge, yt_pass and yt_gs_pass launches counted in the call);
+     Hirshfeld (populations sum to the grid integral within 1e-8, Na
+     alike and Cl alike within 1e-9); xdm_grid card against CPU at 64^3
+     (C6, C8, C10, energy 1e-10 relative) and timed at 256^3; the NaCl
+     Madelung constant (1e-8); CUBE of "$1 * 2" at 256^3 written (2x the
+     grid at the nodes, 1e-12); STM on a 24x24x20 bohr carbon slab at
+     96x96x80 (current image card against CPU, 1e-12); POWDER, RDF (card
+     against CPU 1e-12) and COMPARE on NaCl. Wavefunction leg: RHF on H2
+     (card against CPU 1e-10 Ha) and on its 2x2x2 tile (1e-9 Ha) and
+     4x4x2 tile (192 primitives, npair 18,528: E_total and its parts,
+     wall, peak memory); PBE xc and ELF integrals on the ultra monomer
+     mesh against the CPU (1e-10 relative; ELF weighted by the density,
+     since the bare ELF of the far tail is a ratio of cancelling
+     1e-30-scale terms and is only printed); PBE xc on phase 9's 7.0M-point
+     assembly mesh through the compiler (dense GTO) against the
+     screened evaluator with xc_eval called directly (1e-10); mep,
+     uslater and xhole on 4,096 monomer points and mep on the tile
+     (card against CPU 1e-10); xdm_wfn on the monomer (1e-10);
 then one JSON line of kernel records and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -1953,7 +1979,380 @@ def wfn_phase(dev):
         f"{t_td:.3f} s")
     out["_seeds"] = seeds
     out["_wfn"] = w
+    out["_system"] = s
+    out["_monomer"] = s1
     return out
+
+
+EXPR_TILE = (4, 4, 2)   # 64 atoms, 192 primitives: benzene/6-31G*'s count
+
+
+def expr_grid_leg(sl, card):
+    """Phase 11a: the expression engine and what it feeds on the slice
+    phase's 256^3 NaCl analogue, card against the port on the CPU."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch import System
+    from critic2_tpu_torch.analysis import rhoplot, struct
+    from critic2_tpu_torch.analysis.ewald import ewald_energy
+    from critic2_tpu_torch.analysis.hirshfeld import hirshfeld_charges
+    from critic2_tpu_torch.analysis.integration import (_grid_points,
+                                                        _rasterize_field,
+                                                        intgrid)
+    from critic2_tpu_torch.analysis.stm import stm
+    from critic2_tpu_torch.analysis.xdm import xdm_grid
+    from critic2_tpu_torch.arithmetic import compile_expr
+    from critic2_tpu_torch.crystal.cell import m_x2c_from_cellpar
+    from critic2_tpu_torch.crystal.crystal import Crystal, Species
+    from critic2_tpu_torch.fields.field import Field
+    from critic2_tpu_torch.fields.grid3 import Grid3
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    s = sl["system"]
+    c = s.crystal
+    dev = s.device
+    n = N_SLICE
+    shape = (n, n, n)
+    g = s.field(1).grid.f
+    out, walls = {}, {}
+
+    def cpu_twin(crystal, grid):
+        t = System.from_structure(crystal, device="cpu")
+        t.load_field(Field.from_grid(crystal, Grid3(grid.cpu())))
+        return t
+
+    scpu = cpu_twin(c, g)
+
+    # LOAD AS "$1:l" at 256^3; 4,096 nodes of one loader block against
+    # the CPU at the card's own coordinates
+    fid, walls["load_field_expr_lap_s"] = wall_s(
+        lambda: s.load_field_expr("$1:l", name="lap1", shape=shape))
+    blk = min(65536, n ** 3)
+    lo = min(100 * 65536, n ** 3 - blk)
+    xT = _grid_points(c, shape, lo, lo + blk, torch.float64, dev)[:, ::16]
+    ref = compile_expr("$1:l", scpu)(xT.cpu())
+    got = s.field(fid).grid.f.reshape(-1)[lo:lo + blk:16].cpu()
+    e_lap = rel_err(got, ref)
+    check(e_lap <= 1e-12, f"expression grid $1:l card vs CPU {e_lap:.3e}")
+    s.unload_field(fid)
+    out["expr_grid_card_vs_cpu_rel"] = e_lap
+
+    # a ghost 2*$1: autograd derivatives at 131,072 points off the node
+    # planes against central differences of the ghost value
+    gid = s.load_field_expr("2*$1", name="ghost2", ghost=True)
+    rng = np.random.default_rng(31)
+    cell = rng.integers(0, n, (131072, 3))
+    pts = ((cell + 0.01 + 0.98 * rng.random((131072, 3))) / n) @ c.m_x2c.T
+    ptsT = torch.as_tensor(pts, dtype=torch.float64, device=dev)
+    gh = s.field(gid)
+    res, walls["ghost_grd_nder2_s"] = wall_s(lambda: gh.grd(ptsT, nder=2))
+    res, walls["ghost_grd_nder2_s"] = wall_s(lambda: gh.grd(ptsT, nder=2))
+    f1 = s.field(1).grd(ptsT, nder=0).f
+    e_val = rel_err(res.f, 2.0 * f1)
+    h = 1e-5
+    e_fd = 0.0
+    for d in range(3):
+        dp = torch.zeros(3, dtype=torch.float64, device=dev)
+        dp[d] = h
+        fd = (gh.grd(ptsT + dp, nder=0).f - gh.grd(ptsT - dp, nder=0).f) \
+            / (2 * h)
+        e_fd = max(e_fd, float(((res.gf[:, d] - fd).abs()
+                                / (1e-10 + 5e-6 * fd.abs())).max()))
+    check(e_val <= 1e-12 and e_fd <= 1.0,
+          f"ghost 2*$1: value {e_val:.3e}, autograd vs differences "
+          f"{e_fd:.3f} of the 5e-6 bar")
+    s.unload_field(gid)
+    out["ghost"] = {"points": 131072, "value_rel": e_val,
+                    "grad_vs_fd_of_bar": e_fd}
+
+    # intgrid with DISCARD and two INTEGRABLE entries, launches counted
+    s.integrables[:] = ["$1", ("gtf(1)", "gtf")]
+    ops.reset_launches()
+    r, walls["intgrid_discard_integrable_s"] = wall_s(
+        lambda: intgrid(s, method="yt", discard="$1 < 1e-3"))
+    launches = dict(ops.launches)
+    s.integrables.clear()
+    rows0 = sl["intres"].rows
+    check([x.name for x in r.rows] == [x.name for x in rows0],
+          "intgrid with INTEGRABLE: other basins")
+    dq = max(abs(a.pop - b.pop) for a, b in zip(r.rows, rows0))
+    d1 = max(abs(a.extra["$1"] - a.pop) for a in r.rows)
+    check(dq <= 1e-8 and d1 <= 1e-8, f"intgrid with INTEGRABLE: charges "
+          f"{dq:.3e} e off the slice phase's, $1 integrable {d1:.3e} e")
+    for k in ops.launches:
+        check(launches[k] > 0, f"intgrid with INTEGRABLE launched no {k}")
+    out["intgrid"] = {"dq_vs_slice_e": dq, "integrable_vs_charge_e": d1,
+                      "gtf": [a.extra["gtf"] for a in r.rows],
+                      "launches": launches}
+
+    # Hirshfeld at 256^3
+    hres, walls["hirshfeld_s"] = wall_s(lambda: hirshfeld_charges(s))
+    tot = float(g.sum()) * c.volume / g.numel()
+    dsum = abs(hres.pops.sum() - tot)
+    na, cl = hres.pops[[0, 2]], hres.pops[[1, 3]]
+    dna, dcl = abs(na[0] - na[1]) / na[0], abs(cl[0] - cl[1]) / cl[0]
+    check(dsum <= 1e-8 and dna <= 1e-9 and dcl <= 1e-9,
+          f"Hirshfeld: sum {dsum:.3e} e off the grid integral, Na {dna:.3e}"
+          f" Cl {dcl:.3e} apart")
+    out["hirshfeld"] = {"pops": hres.pops.tolist(), "sum_err_e": dsum}
+
+    # XDM: card against CPU at 64^3, then the 256^3 run timed
+    g64 = _rasterize_field(s.fields[0], (64, 64, 64))
+    s64 = System.from_structure(c, device=dev)
+    s64.load_field(Field.from_grid(c, Grid3(g64)))
+    x_card, walls["xdm_grid_64_s"] = wall_s(lambda: xdm_grid(s64))
+    x_cpu = xdm_grid(cpu_twin(c, g64))
+    e_x = max(float(np.abs(getattr(x_card, k) - getattr(x_cpu, k)).max()
+                    / np.abs(getattr(x_cpu, k)).max())
+              for k in ("c6", "c8", "c10"))
+    e_x = max(e_x, abs(x_card.energy - x_cpu.energy) / abs(x_cpu.energy))
+    check(e_x <= 1e-10, f"xdm_grid 64^3 card vs CPU {e_x:.3e}")
+    x256, walls["xdm_grid_256_s"] = wall_s(lambda: xdm_grid(s))
+    check(np.isfinite(x256.energy) and x256.energy < 0,
+          f"xdm_grid 256^3 energy {x256.energy}")
+    out["xdm"] = {"card_vs_cpu_64_rel": e_x, "energy_64": x_card.energy,
+                  "energy_256": x256.energy, "c6_256": x256.c6[0].tolist()}
+
+    # Ewald: the NaCl Madelung constant (conventional cell)
+    a = 10.66
+    base = np.array([[0, 0, 0], [0, .5, .5], [.5, 0, .5], [.5, .5, 0]])
+    c8 = Crystal(m_x2c=m_x2c_from_cellpar([a] * 3, [90] * 3),
+                 x_frac=np.vstack([base, (base + 0.5) % 1]),
+                 species_of=np.array([0] * 4 + [1] * 4),
+                 species=[Species("Na", 11), Species("Cl", 17)])
+    q8 = np.array([1.0] * 4 + [-1.0] * 4)
+    e8, walls["ewald_energy_s"] = wall_s(
+        lambda: ewald_energy(c8, q8, device=dev))
+    mad = -e8 * (a / 2) / 4.0
+    check(abs(mad - 1.747564594633) < 1e-8, f"Madelung NaCl {mad}")
+    out["madelung_nacl"] = mad
+
+    # CUBE of an expression at 256^3, written
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "twice.cube")
+        data, walls["cube_eval_and_write_s"] = wall_s(
+            lambda: rhoplot.cube(s, n=shape, what="$1 * 2", file=path))
+        size = os.path.getsize(path)
+    e_cube = rel_err(data, 2.0 * g)
+    check(e_cube <= 1e-12 and size > 23 * n ** 3,
+          f"CUBE $1*2 at 256^3: {e_cube:.3e} off 2*grid, {size} bytes")
+    out["cube"] = {"vs_grid_rel": e_cube, "bytes": size}
+
+    # STM on the slab of tests/test_flux_stm.py:57-80, 4x4 wider in plane
+    xy = np.array([[i / 4 + o, j / 4 + o] for i in range(4)
+                   for j in range(4) for o in (0.0, 0.125)])
+    slab = Crystal(m_x2c=m_x2c_from_cellpar([24.0, 24.0, 20.0], [90] * 3),
+                   x_frac=np.c_[xy, np.full(len(xy), 0.2)],
+                   species_of=np.zeros(len(xy), dtype=int),
+                   species=[Species("C", 6)])
+    ss = System.from_structure(slab, device=dev)
+    gs = _rasterize_field(ss.fields[0], (96, 96, 80))
+    ss.load_field(Field.from_grid(slab, Grid3(gs)))
+    cur, walls["stm_current_96x96_s"] = wall_s(
+        lambda: stm(ss, mode="current", level=1e-4, npts=(96, 96)))
+    hgt, walls["stm_height_96x96_s"] = wall_s(
+        lambda: stm(ss, mode="height", npts=(96, 96)))
+    sc = cpu_twin(slab, gs)
+    cur_cpu = stm(sc, mode="current", level=1e-4, npts=(96, 96))
+    e_stm = float(np.abs(cur.image - cur_cpu.image).max())
+    check(e_stm <= 1e-12 and cur.image.min() > 0.2 and
+          cur.image.max() <= cur.ztop + 1e-9 and cur.image.std() > 1e-4,
+          f"STM current: card vs CPU {e_stm:.3e}, range "
+          f"{cur.image.min()}..{cur.image.max()}")
+    out["stm"] = {"current_card_vs_cpu": e_stm, "ztop": cur.ztop,
+                  "height_mean": float(hgt.image.mean())}
+
+    # POWDER, RDF, COMPARE on NaCl
+    pat, walls["powder_s"] = wall_s(lambda: struct.powder(c8))
+    rdf_card, walls["rdf_s"] = wall_s(lambda: struct.rdf(c8, device=dev))
+    rdf_cpu = struct.rdf(c8, device="cpu")
+    e_rdf = float(np.abs(rdf_card.ih - rdf_cpu.ih).max()
+                  / np.abs(rdf_cpu.ih).max())
+    c8b = Crystal(m_x2c=m_x2c_from_cellpar([a * 1.05] * 3, [90] * 3),
+                  x_frac=c8.x_frac, species_of=c8.species_of,
+                  species=c8.species)
+    dmat, walls["compare_s"] = wall_s(
+        lambda: struct.compare([c8, c8, c8b], device=dev))
+    ipk = int(np.argmax(pat.peaks_i))
+    check(e_rdf <= 1e-12 and dmat[0, 1] < 1e-8 and dmat[0, 2] > 0.01,
+          f"RDF card vs CPU {e_rdf:.3e}, COMPARE {dmat.tolist()}")
+    out["struct"] = {"strongest_peak_2theta": float(pat.peaks_t[ipk]),
+                     "rdf_card_vs_cpu_rel": e_rdf,
+                     "compare": dmat.tolist()}
+    out["walls_s"] = walls
+    out["launches"] = launches
+    log(f"expression grid leg ({card}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()))
+    log(f"  $1:l grid card vs CPU {e_lap:.3e}; ghost value {e_val:.3e}, "
+        f"autograd gradient at {e_fd:.3f} of the 5e-6 difference bar; "
+        f"intgrid with DISCARD + 2 INTEGRABLE: charges {dq:.3e} e off the "
+        f"slice phase's, $1 integrable {d1:.3e} e off the charge, launches "
+        f"{launches}; Hirshfeld pops {np.round(hres.pops, 6).tolist()}; "
+        f"XDM 64^3 card vs CPU {e_x:.3e}, E(256^3) {x256.energy:.10e} Ha; "
+        f"Madelung {mad:.12f}; CUBE {size} bytes; STM card vs CPU "
+        f"{e_stm:.3e}; RDF card vs CPU {e_rdf:.3e}")
+    return out
+
+
+def expr_wfn_leg(wf, card):
+    """Phase 11b: integrals, xc and the hole functions on H2/STO-3G, its
+    tiles and the assembly mesh of phase 9, card against the CPU."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch import System
+    from critic2_tpu_torch.analysis.mesh import becke_mesh
+    from critic2_tpu_torch.analysis.molcalc import molcalc_integral
+    from critic2_tpu_torch.analysis.xdm import xdm_wfn
+    from critic2_tpu_torch.fields.wfn import Wavefunction
+    from critic2_tpu_torch.ops.mdint import rhf_energy
+    from critic2_tpu_torch.ops.xc import xc_eval
+
+    out, walls = {}, {}
+    s1 = wf.pop("_monomer")
+    sa = wf.pop("_system")
+    dev = s1.device
+    w1 = s1.ref.wfn
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    path = os.path.join(tmp, "h2.molden")
+    with open(path, "w") as fh:
+        fh.write(H2_MOLDEN)
+    s1c = System.from_structure(path, device="cpu")
+    s1c.load_field(path)
+
+    # RHF: the monomer and a 2x2x2 tile card against CPU, the 4x4x2 tile
+    e1, walls["rhf_h2_s"] = wall_s(lambda: rhf_energy(w1, device=dev))
+    e1c = rhf_energy(w1, device="cpu")
+    d1 = max(abs(e1[k] - e1c[k]) for k in e1)
+    check(d1 <= 1e-10, f"rhf H2 card vs CPU {d1:.3e} Ha")
+    w8 = Wavefunction.from_file(path).tile((2, 2, 2))
+    e8, walls["rhf_tile222_s"] = wall_s(lambda: rhf_energy(w8, device=dev))
+    d8 = max(abs(e8[k] - rhf_energy(w8, device="cpu")[k]) for k in e8)
+    check(d8 <= 1e-9, f"rhf 2x2x2 tile card vs CPU {d8:.3e} Ha")
+    wt = Wavefunction.from_file(path).tile(EXPR_TILE)
+    npair = wt.npri * (wt.npri + 1) // 2
+    torch.cuda.reset_peak_memory_stats()
+    et, walls["rhf_tile442_s"] = wall_s(lambda: rhf_energy(wt, device=dev))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(v) for v in et.values()) and
+          et["E_total"] < 0 and npair == 18528,
+          f"rhf tile {EXPR_TILE}: {et}, npair {npair}")
+    out["rhf"] = {"h2": e1, "h2_card_vs_cpu": d1, "tile222_card_vs_cpu": d8,
+                  "tile442": et, "tile442_npri": wt.npri,
+                  "tile442_npair": npair, "tile442_peak_gib": peak}
+
+    # molcalc expressions on the ultra monomer mesh
+    pbe = "xc($1, $1:g, 101) + xc($1, $1:g, 130)"
+    mc = {}
+    for expr in (pbe, "elf(1)", "elf(1) * $1"):
+        v, t = wall_s(lambda: molcalc_integral(
+            s1, expr, lvl="ultra", weights_dtype=np.float64))
+        vc = molcalc_integral(s1c, expr, lvl="ultra",
+                              weights_dtype=np.float64)
+        mc[expr] = {"card": v, "cpu": vc, "rel": abs(v - vc) / abs(vc),
+                    "wall_s": t}
+    # the bare ELF integral sums the mesh's far tail, where ELF is the
+    # ratio of two cancelling 1e-30-scale terms: it is reported, and
+    # the density-weighted one is held to the bar
+    check(mc[pbe]["rel"] <= 1e-10 and mc["elf(1) * $1"]["rel"] <= 1e-10,
+          f"molcalc card vs CPU: {mc}")
+    out["molcalc_monomer"] = mc
+
+    # one xc expression on the assembly's 7.0M-point mesh of phase 9 (the
+    # compiler evaluates the wavefunction densely), held against the same
+    # sum from the screened evaluator and xc_eval called directly
+    wa = sa.ref.wfn
+    ncopy = len(wa.atz) // 2
+    ea, walls["molcalc_pbe_assembly_s"] = wall_s(
+        lambda: molcalc_integral(sa, pbe, lvl="normal"))
+
+    def screened_sum():
+        m = becke_mesh(sa.crystal, "normal", weights_dtype=np.float32,
+                       device=dev)
+        acc = torch.zeros((), dtype=torch.float64, device=dev)
+        for lo in range(0, m.n, 1 << 17):
+            xT = torch.as_tensor(
+                np.ascontiguousarray(m.x[lo:lo + (1 << 17)].T),
+                                 dtype=torch.float64, device=dev)
+            f, gf, _ = wa.rho_eval_screened(xT, nder=1)
+            gm = torch.sqrt((gf * gf).sum(0))
+            wl = torch.as_tensor(np.asarray(m.w[lo:lo + xT.shape[1]],
+                                            np.float64), device=dev)
+            acc += wl @ (xc_eval(101, f, gm) + xc_eval(130, f, gm))
+        return float(acc)
+
+    es, walls["pbe_assembly_screened_s"] = wall_s(screened_sum)
+    d_route = abs(ea - es) / abs(es)
+    per_copy = ea / ncopy / mc[pbe]["card"] - 1.0
+    check(np.isfinite(ea) and d_route <= 1e-10,
+          f"PBE xc on the assembly {ea}, screened route {es}")
+    out["molcalc_assembly"] = {"pbe_xc": ea, "screened_route": es,
+                               "routes_rel": d_route,
+                               "per_copy_over_monomer_minus_1": per_copy}
+
+    # mep, uslater, xhole on 4,096 monomer points; mep on the 192-primitive
+    # tile (its first 256 points against the CPU)
+    rng = np.random.default_rng(41)
+    pts = w1.atpos.mean(0) + rng.normal(size=(4096, 3))
+    ptsT = torch.as_tensor(pts, dtype=torch.float64, device=dev)
+    holes = {}
+    for name, fn in (("mep", lambda w, p: w.mep(p)),
+                     ("uslater", lambda w, p: w.uslater(p)),
+                     ("xhole", lambda w, p: w.xhole(p, [0.1, 0.0, 0.6]))):
+        v, t = wall_s(lambda: fn(w1, ptsT))
+        holes[name] = {"rel": rel_err(v.cpu(), fn(w1, ptsT.cpu())),
+                       "wall_s": t}
+    ptst = wt.atpos.mean(0) + 4.0 * rng.normal(size=(4096, 3))
+    ptstT = torch.as_tensor(ptst, dtype=torch.float64, device=dev)
+    vt, t = wall_s(lambda: wt.mep(ptstT))
+    holes["mep_tile442"] = {"rel": rel_err(vt[:256].cpu(),
+                                           wt.mep(ptstT[:256].cpu())),
+                            "wall_s": t}
+    check(max(v["rel"] for v in holes.values()) <= 1e-10,
+          f"hole functions card vs CPU: {holes}")
+    out["holes"] = holes
+
+    # XDM of the monomer on its good mesh, card against CPU
+    xw, walls["xdm_wfn_s"] = wall_s(lambda: xdm_wfn(s1))
+    xwc = xdm_wfn(s1c)
+    e_xw = abs(xw.energy - xwc.energy) / abs(xwc.energy)
+    check(xw.energy < 0 and e_xw <= 1e-10,
+          f"xdm_wfn card vs CPU {e_xw:.3e}, energy {xw.energy}")
+    out["xdm_wfn"] = {"energy": xw.energy, "c6": xw.c6.tolist(),
+                      "card_vs_cpu_rel": e_xw}
+    out["walls_s"] = walls
+    log(f"expression wavefunction leg ({card}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()))
+    log(f"  RHF H2 {e1['E_total']:.12f} Ha (card vs CPU {d1:.3e}); tile "
+        f"{EXPR_TILE} ({wt.npri} primitives, npair {npair}): E_total "
+        f"{et['E_total']:.10f}, E1 {et['E1']:.10f}, E_J {et['E_J']:.10f}, "
+        f"E_K {et['E_K']:.10f}, E_nn {et['E_nn']:.10f} Ha, peak "
+        f"{peak:.2f} GiB; 2x2x2 card vs CPU {d8:.3e}")
+    log(f"  molcalc (ultra monomer): " + "; ".join(
+        f"{k}: {v['card']:.12e} (card vs CPU {v['rel']:.3e}, "
+        f"{v['wall_s']:.3f} s)" for k, v in mc.items()))
+    log(f"  PBE xc on the assembly mesh: {ea:.10f} Ha (dense, through the "
+        f"compiler) against {es:.10f} (screened, direct), {d_route:.3e} "
+        f"apart; per copy {per_copy:+.3e} off the monomer (the copies' "
+        f"tails overlap and xc is not additive); holes: " + "; ".join(
+            f"{k} card vs CPU {v['rel']:.3e} ({v['wall_s']:.3f} s)"
+            for k, v in holes.items()))
+    log(f"  xdm_wfn: E {xw.energy:.10e} Ha, card vs CPU {e_xw:.3e}")
+    return out
+
+
+def expressions_phase(sl, wf, card):
+    """Phase 11: the expression slice, both legs."""
+    out = {"grid": expr_grid_leg(sl, card), "wfn": expr_wfn_leg(wf, card)}
+    out["launches"] = out["grid"]["launches"]
+    log(json.dumps({"expressions": out}, default=float))
+    return out
+
 
 
 def late_launch_counts(sl, q, wf):
@@ -2050,6 +2449,9 @@ def main() -> int:
     wf = wfn_phase(dev)
     log(f"wavefunction phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    ex = expressions_phase(sl, wf, card.splitlines()[0])
+    log(f"expressions phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     path_phase(sl, grid_out, args.profile)
     log(f"gradient-path and FFT phase: {time.perf_counter() - t0:.1f} s")
     late_launch_counts(sl, q, wf)
@@ -2067,6 +2469,7 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": None,
             "launches_multipoles": mp["launches"][name],
             "launches_quickstart": qs["launches"][name],
+            "launches_expressions": ex["launches"][name],
             **m.get("extra", {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,13 +42,20 @@ def _attr_images(system, cpl=None):
 
 
 def _field_values(system, expr):
-    """Host closure points (N, 3) numpy -> reference-field values (N,)
-    numpy, evaluated on the field's device."""
+    """Host closure points (N, 3) numpy -> reference-field (or `expr`)
+    values (N,) numpy, evaluated on the system's device."""
+    dev = resolve_device(system.device)
     if expr is not None:
-        raise NotImplementedError(
-            "expr= waits for arithmetic.py, which is not ported to the "
-            "torch package yet")
-    resolve_device(system.device)
+        from ..arithmetic import compile_expr
+
+        fn = compile_expr(expr, system)
+
+        def eval_expr(pts):
+            xT = torch.as_tensor(np.ascontiguousarray(pts.T), dtype=FDTYPE,
+                                 device=dev)
+            return fn(xT).cpu().numpy()
+
+        return eval_expr
     f = system.ref
     fn0 = f.eval_fn(nder=0)
 

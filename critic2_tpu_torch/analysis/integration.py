@@ -7,9 +7,9 @@ maxima become non-nuclear maxima, NNM), then integrate the volume, the
 charge and any extra integrand in one batched adjoint solve.
 
 Device: rasterization, decomposition and the solve. Host: matching,
-merging, table assembly. The port carries method="yt" and "bader" and the
-atomic multipoles; the sharded mesh, INTEGRABLE expressions and DISCARD
-are not ported yet.
+merging, table assembly. The port carries method="yt" and "bader", the
+INTEGRABLE expressions, DISCARD and the atomic multipoles; the sharded
+mesh is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from dataclasses import dataclass, field as dfield
 import numpy as np
 import torch
 
+from ..config import FDTYPE
 from .bader import bader_integrate
 from .yt import yt_integrate
 
@@ -102,7 +103,11 @@ def intgrid(system, method: str = "yt", ratom: float = 1.0,
     The reference field must be (or is rasterized to, at `grid_shape`,
     64^3 by default) a grid; its core-augmented variant is the basin field
     when the field has usecore set (src/integration@proc.f90:176-183).
-    fields: optional {name: (n1,n2,n3) array} of extra integrands.
+    fields: optional {name: (n1,n2,n3) array or tensor} of extra
+    integrands; the expressions registered in system.integrables
+    (strings, or (expr, label) pairs) join them, evaluated on the grid
+    nodes. discard: an expression; attractors where it is non-zero are
+    dropped with their basin's charge and volume.
     Attractor-to-atom assignment follows the reference keywords
     (src/integration@proc.f90:166-175): nnm=False assigns every attractor
     to its nearest atom; nnm=True keeps attractors farther than `ratom`
@@ -114,9 +119,6 @@ def intgrid(system, method: str = "yt", ratom: float = 1.0,
     if mesh is not None:
         raise NotImplementedError("mesh= (sharded YT) is not ported to the "
                                   "torch package yet")
-    if discard:
-        raise NotImplementedError("discard= waits for arithmetic.py, which "
-                                  "is not ported to the torch package yet")
     f = system.ref
     c = system.crystal
     if f.type == "grid":
@@ -135,15 +137,34 @@ def intgrid(system, method: str = "yt", ratom: float = 1.0,
         res = bader_integrate(c, rho, block=max(block, 1 << 16),
                               method=bader_method)
 
+    dev = rho.device
+    # registered INTEGRABLE expressions evaluate on the basin grid nodes
+    # (reference intgrid_fields, src/integration@proc.f90:949-1178)
+    if system.integrables:
+        from ..arithmetic import compile_expr
+
+        fields = dict(fields or {})
+        N = int(np.prod(shape))
+        for item in system.integrables:
+            # entries are expression strings, or (expr, label) pairs
+            # from INTEGRABLE ... NAME (reference propty NAME option)
+            expr, label = item if isinstance(item, tuple) else (item, item)
+            fn = compile_expr(expr, system)
+            out = torch.empty(N, dtype=rho.dtype, device=dev)
+            for lo in range(0, N, block):
+                hi = min(N, lo + block)
+                out[lo:hi] = fn(_grid_points(c, shape, lo, hi, rho.dtype,
+                                             dev))
+            fields[label] = out.reshape(shape)
+
     npts = float(np.prod(shape))
     scale = c.volume / npts
     # one batched adjoint solve for every integrand (volume, charge, extras)
     fnames = list(fields) if fields else []
-    dev = rho.device
     stack = torch.stack(
         [torch.ones(int(npts), dtype=rho.dtype, device=dev),
          rho.reshape(-1)]
-        + [torch.as_tensor(np.asarray(fields[n]), dtype=rho.dtype,
+        + [torch.as_tensor(fields[n], dtype=rho.dtype,
                            device=dev).reshape(-1) for n in fnames])
     qall = res.integrate(stack) * scale
     vol, pop = qall[0], qall[1]
@@ -154,11 +175,24 @@ def intgrid(system, method: str = "yt", ratom: float = 1.0,
     else:
         iat = _match_attractors(c, res.xattr, ratom if nnm else 1e40)
 
+    # DISCARD: attractors where the expression is non-zero are dropped
+    # with their basin's charge and volume (reference bas%expr,
+    # src/yt@proc.f90:160-166)
+    dropped = np.zeros(res.nattr, dtype=bool)
+    if discard:
+        xc_attr = np.asarray(res.xattr).reshape(-1, 3) @ \
+            np.asarray(c.m_x2c).T
+        vals = system.eval_expr(discard, xc_attr).cpu().numpy()
+        dropped = np.abs(vals.reshape(-1)) > 1e-30
+
     # merge attractors mapped to the same atom (one row per attractor-atom)
     rows = []
     used = {}
     attr_map = []
     for a in range(res.nattr):
+        if dropped[a]:
+            attr_map.append(-1)
+            continue
         key = ("atom", iat[a]) if iat[a] >= 0 else ("nnm", a)
         if key in used:
             r = rows[used[key]]
@@ -250,7 +284,8 @@ def _rasterize_field(f, shape, block: int = 1 << 16, nder: int = 0):
     """Evaluate a field on the regular grid nodes, `block` nodes at a time,
     on the field's device."""
     fn = f.eval_fn(nder=nder)
-    dev, dt = f.promol.atpos.device, f.promol.atpos.dtype
+    dev = f.device
+    dt = f.promol.atpos.dtype if f.type == "promol" else FDTYPE
     N = int(np.prod(shape))
     out = torch.empty(N, dtype=dt, device=dev)
     for lo in range(0, N, block):

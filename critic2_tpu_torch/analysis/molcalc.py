@@ -1,11 +1,9 @@
-"""MOLCALC: integrals over molecular meshes.
+"""MOLCALC: expression integrals over molecular meshes.
 
-Role of the reference molcalc (src/molcalc@proc.F90:30-110): integrate
-over the Becke mesh of the current molecule; NELEC integrates the
-reference density; PEACH computes the Peach-Helgaker-Tozer excitation
-overlap. Expressions other than a bare field reference wait for the
-expression compiler (arithmetic.py), and HF for the molecular integrals
-(ops/mdint.py); both raise NotImplementedError.
+Role of the reference molcalc (src/molcalc@proc.F90:30-110): integrate an
+arithmetic expression over the Becke mesh of the current molecule; NELEC
+integrates the reference density; PEACH computes the Peach-Helgaker-
+Tozer excitation overlap; HF the Hartree-Fock total energy.
 """
 from __future__ import annotations
 
@@ -38,6 +36,10 @@ def molcalc_integral(system, expr: str, lvl: str = "good",
     src/meshmod@proc.f90:407): an all-f64 nder=0 density sweep, summed
     against the weights in f64 on the device."""
     dev = resolve_device(system.device)
+    m = becke_mesh(system.crystal, lvl, weights_dtype=weights_dtype,
+                   device=dev)
+    w = torch.as_tensor(np.asarray(m.w, np.float64), dtype=FDTYPE,
+                        device=dev)
     bare = re.fullmatch(r"\$(\w+)", expr.strip())
     f = None
     if bare is not None:
@@ -45,17 +47,18 @@ def molcalc_integral(system, expr: str, lvl: str = "good",
             f = system.field(bare.group(1))
         except (KeyError, ValueError):
             f = None
-    if f is None or f.type != "wfn" or f.coreenv is not None:
-        raise NotImplementedError(
-            f"molcalc of {expr!r} waits for arithmetic.py (the expression "
-            "compiler), which is not ported to the torch package yet; a "
-            "bare $field of a wavefunction field runs")
-    m = becke_mesh(system.crystal, lvl, weights_dtype=weights_dtype,
-                   device=dev)
-    rho = f.wfn.rho_eval_soa(m.x.T, nder=0, device=f.device)[0]
-    w = torch.as_tensor(np.asarray(m.w, np.float64), dtype=FDTYPE,
-                        device=rho.device)
-    return float(w @ rho)
+    if f is not None and f.type == "wfn" and f.coreenv is None:
+        rho = f.wfn.rho_eval_soa(m.x.T, nder=0, device=f.device)[0]
+        return float(w @ rho.to(dev))
+    from ..arithmetic import compile_expr
+
+    fn = compile_expr(expr, system, periodic=False)
+    acc = torch.zeros((), dtype=FDTYPE, device=dev)
+    for lo in range(0, m.n, block):
+        xT = torch.as_tensor(np.ascontiguousarray(m.x[lo:lo + block].T),
+                             dtype=FDTYPE, device=dev)
+        acc = acc + w[lo:lo + xT.shape[1]] @ fn(xT)
+    return float(acc)
 
 
 def molcalc_nelec(system, lvl: str = "good") -> float:
@@ -95,7 +98,13 @@ def molcalc_peach(system, transitions, lvl: str = "good",
 
 def molcalc_hf(system, block: int = 96) -> dict:
     """Hartree-Fock total energy of the reference wavefunction
-    (reference molcalc_hfenergy, src/molcalc@proc.F90:238-404)."""
-    raise NotImplementedError(
-        "molcalc_hf waits for ops/mdint.py (McMurchie-Davidson integrals), "
-        "which is not ported to the torch package yet")
+    (reference molcalc_hfenergy via libCINT,
+    src/molcalc@proc.F90:238-404; here via ops/mdint McMurchie-Davidson
+    integrals), computed on the system's device."""
+    from ..ops.mdint import rhf_energy
+
+    f = system.ref
+    if f.type != "wfn":
+        raise ValueError("MOLCALC HF needs a wavefunction reference field")
+    return rhf_energy(f.wfn, block=block,
+                      device=resolve_device(system.device))

@@ -4,9 +4,10 @@ Role of the reference fieldmod (src/fieldmod.f90): a field is a crystal
 plus one evaluation backend, evaluated through a single dispatch `grd`
 that returns value, gradient, Hessian and derived scalars for a whole
 batch of points (reference grd, src/fieldmod@proc.f90:613-845). The port
-carries the grid (every grid format but pwc), promolecular and
-molecular-wavefunction (wfn) types; the others (wien, elk, pi, dftb,
-ghost) raise NotImplementedError naming the module they wait for.
+carries the grid (every grid format but pwc), promolecular,
+molecular-wavefunction (wfn) and ghost (expression) types; the others
+(wien, elk, pi, dftb) raise NotImplementedError naming the module they
+wait for.
 
 Pipeline per batch (mirrors the reference):
   1. Cartesian -> fractional, wrap to the main cell (periodic)
@@ -49,14 +50,54 @@ class ScalarBatch:
         return self.hf[..., 0, 0] + self.hf[..., 1, 1] + self.hf[..., 2, 2]
 
 
+def _ghost_derivs(expr_fn, xT, nder):
+    """Value/gradient/Hessian of a batched scalar closure by autograd.
+
+    Points are independent, so d(sum_n f)/dxT gives the per-point
+    gradients, and one backward pass of each gradient row (summed over
+    the points) gives a row of every point's Hessian. Inside another
+    differentiation (a ghost of a ghost) the graph is kept so the outer
+    pass differentiates through this one."""
+    N = xT.shape[1]
+    z3 = torch.zeros((3, N), dtype=FDTYPE, device=xT.device)
+    z6 = torch.zeros((6, N), dtype=FDTYPE, device=xT.device)
+    if nder < 1:
+        return expr_fn(xT), z3, z6
+    outer = xT.requires_grad
+    x = xT if outer else xT.detach().requires_grad_(True)
+    with torch.enable_grad():
+        f = expr_fn(x)
+        if not f.requires_grad:        # the expression ignores the points
+            return f, z3, z6
+        (gf,) = torch.autograd.grad(f.sum(), x,
+                                    create_graph=outer or nder >= 2)
+        if nder < 2:
+            return (f, gf, z6) if outer else (f.detach(), gf, z6)
+        rows = []
+        for i in range(3):
+            if not gf.requires_grad:
+                rows.append(torch.zeros_like(gf))
+                continue
+            (hi,) = torch.autograd.grad(gf[i].sum(), x, retain_graph=True,
+                                        create_graph=outer,
+                                        allow_unused=True)
+            rows.append(torch.zeros_like(gf) if hi is None else hi)
+    h6 = torch.stack([rows[0][0], rows[1][1], rows[2][2], rows[0][1],
+                      rows[0][2], rows[1][2]])
+    if outer:
+        return f, gf, h6
+    return f.detach(), gf.detach(), h6.detach()
+
+
 @dataclass
 class Field:
     crystal: object
-    type: str       # 'grid' | 'promol' | 'wfn'
+    type: str       # 'grid' | 'promol' | 'wfn' | 'ghost'
     grid: Grid3 | None = None
     promol: PromolEnv | None = None
     wfn: object | None = None       # fields/wfn.Wavefunction
-    wdevice: torch.device | None = None   # where a wfn field evaluates
+    wdevice: torch.device | None = None   # where a wfn/ghost field evaluates
+    expr: object = None             # compiled ghost expression
     name: str = ""
     usecore: bool = False
     zpsp: dict = dfield(default_factory=dict)
@@ -73,6 +114,18 @@ class Field:
         return cls(crystal=crystal, type="promol",
                    promol=PromolEnv(crystal, fragment=fragment,
                                     device=device), name=name)
+
+    @classmethod
+    def ghost(cls, crystal, expr_fn, name="ghost", *,
+              device=None) -> "Field":
+        """Expression-backed field (reference ghost fields): expr_fn is a
+        compiled expression xT (3, N) -> (N,) (arithmetic.compile_expr);
+        derivatives come from autograd. It evaluates on `device` (cuda
+        by default)."""
+        from ..config import resolve_device
+
+        return cls(crystal=crystal, type="ghost", expr=expr_fn, name=name,
+                   wdevice=resolve_device(device))
 
     @classmethod
     def from_grid(cls, crystal, grid: Grid3, name="", **kw) -> "Field":
@@ -136,7 +189,7 @@ class Field:
     def device(self) -> torch.device:
         if self.type == "grid":
             return self.grid.f.device
-        if self.type == "wfn":
+        if self.type in ("wfn", "ghost"):
             return self.wdevice
         return self.promol.device
 
@@ -208,6 +261,12 @@ class Field:
             f, gf, hf = self.promol.eval(wc, nder=nder)
         elif self.type == "wfn":
             f, gf, hf = self.wfn.rho_eval(v, nder=nder)  # molecules: no wrap
+        elif self.type == "ghost":
+            from ..ops.interp import sym6_to_mat
+
+            f, gfT, h6 = _ghost_derivs(self.expr, v.T, nder)
+            gf = gfT.T
+            hf = sym6_to_mat(h6)
         else:
             raise NotImplementedError(
                 f"{self.type} fields are not ported to the torch package "
@@ -253,7 +312,7 @@ class Field:
         return self._evalfns[key]
 
     def _build_eval_fn(self, nder: int, clamp_nuclei: bool):
-        if self.type not in ("grid", "promol", "wfn"):
+        if self.type not in ("grid", "promol", "wfn", "ghost"):
             raise NotImplementedError(
                 f"eval_fn for {self.type} fields is not ported to the torch "
                 "package yet")
@@ -276,6 +335,9 @@ class Field:
         elif ftype == "wfn":
             dev, dt = self.device, FDTYPE
             wfn = self.wfn
+        elif ftype == "ghost":
+            dev, dt = self.device, FDTYPE
+            expr_fn = self.expr
         else:
             dev, dt = promol.atpos.device, promol.atpos.dtype
 
@@ -301,6 +363,8 @@ class Field:
                 # evaluator whatever the size (the screened one needs a
                 # block table per spatial chunk, see analysis/autocp.py)
                 f, gf, h6 = wfn.rho_eval_dense(xT, nder=nder)
+            elif ftype == "ghost":
+                f, gf, h6 = _ghost_derivs(expr_fn, xT, nder)
             else:
                 f, gf, h6 = promolecular_soa(wc, promol.atpos, promol.atspc,
                                              promol.tab, nder=nder)

@@ -906,20 +906,91 @@ class Wavefunction:
     # hole/potential properties (reference wfn_private@proc.F90
     # mep :2231, uslater :2311, xhole :2423)
     # ------------------------------------------------------------------
-    def mep(self, points):
-        raise NotImplementedError(
-            "mep waits for ops/mdint.py (McMurchie-Davidson integrals), "
-            "which is not ported to the torch package yet")
+    def _hole_points(self, points, device):
+        """points (N, 3) as an f64 tensor (numpy goes to `device`)."""
+        if isinstance(points, torch.Tensor):
+            return points.to(FDTYPE).reshape(-1, 3)
+        return _as_points(np.asarray(points, float).reshape(-1, 3).T,
+                          device).T
 
-    def uslater(self, points, want_nheff: bool = False):
-        raise NotImplementedError(
-            "uslater waits for ops/mdint.py and ops/brhole.py, which are "
-            "not ported to the torch package yet")
+    def _rinv_chunk(self) -> int:
+        """Points a block of (B, P, P) rinv integrals: about 2^22
+        elements live at a time."""
+        return max(8, (1 << 22) // max(self.npri * self.npri, 1))
 
-    def xhole(self, points, xref):
-        raise NotImplementedError(
-            "xhole waits for ops/mdint.py and ops/brhole.py, which are not "
-            "ported to the torch package yet")
+    def mep(self, points, *, device=None):
+        """Molecular electrostatic potential at points (N, 3):
+        sum_A Z_A/|r-R_A| - sum_mn D_mn <m|1/|r-r0||n> (reference mep,
+        src/wfn_private@proc.F90:2231-2309, via libCINT CINT1e_rinv;
+        here via the McMurchie-Davidson rinv integrals), an f64 tensor on
+        the points' device."""
+        from ..ops.mdint import _rinv_chunks
+
+        pts = self._hole_points(points, device)
+        dev = pts.device
+        C = torch.as_tensor(self.cmo, dtype=FDTYPE, device=dev)
+        occ = torch.as_tensor(self.occ, dtype=FDTYPE, device=dev)
+        el = torch.empty(pts.shape[0], dtype=FDTYPE, device=dev)
+        with _full_f32(True):
+            D = (C.T * occ) @ C                                # 1-RDM
+            for lo, V in _rinv_chunks(self, pts, self._rinv_chunk()):
+                el[lo:lo + V.shape[0]] = (V * D).sum((1, 2))
+        at = torch.as_tensor(self.atpos, dtype=FDTYPE, device=dev)
+        z = torch.as_tensor(self.atz, dtype=FDTYPE, device=dev)
+        d = torch.linalg.norm(pts[:, None, :] - at[None], dim=-1)
+        vnuc = (z[None, :] / torch.clamp(d, min=1e-14)).sum(1)
+        return vnuc - el
+
+    def uslater(self, points, want_nheff: bool = False, *, device=None):
+        """Slater potential U_x (and optionally the effective hole
+        normalization) at points (N, 3) (reference uslater,
+        src/wfn_private@proc.F90:2311-2420): U_x = -(q V q)/rho with
+        q_mu = sum_i phi_i(r) c_i_mu over occupied MOs. f64 tensors on
+        the points' device."""
+        from ..ops.brhole import xlnorm
+        from ..ops.mdint import _rinv_chunks
+
+        pts = self._hole_points(points, device)
+        dev = pts.device
+        C = torch.as_tensor(self.cmo, dtype=FDTYPE, device=dev)
+        qVq = torch.empty(pts.shape[0], dtype=FDTYPE, device=dev)
+        with _full_f32(True):
+            q = self.mo_values(pts).T @ C                      # (B, P)
+            for lo, V in _rinv_chunks(self, pts, self._rinv_chunk()):
+                ql = q[lo:lo + V.shape[0]]
+                qVq[lo:lo + V.shape[0]] = torch.einsum(
+                    "bm,bmn,bn->b", ql, V, ql)
+        ex = self.extras_soa(pts.T)
+        rho = ex["rho"]
+        ux = -qVq / torch.clamp(rho, min=1e-40)
+        if not want_nheff:
+            return ux
+        lap = ex["h6"][0] + ex["h6"][1] + ex["h6"][2]
+        gmod = torch.sqrt((ex["grad"] ** 2).sum(0))
+        rhos = 0.5 * rho
+        laps = 0.5 * lap
+        drhos2 = (0.5 * gmod) ** 2
+        dsigs = ex["gkin"] - 0.25 * drhos2 / torch.clamp(rhos, min=1e-40)
+        quads = (laps - 2.0 * dsigs) / 6.0
+        return ux, xlnorm(rhos, quads, 2.0 * ux)
+
+    def xhole(self, points, xref, *, device=None):
+        """Exchange hole h_x(r; r_ref) = -gamma_1(r, r_ref)^2 /
+        rho_spin(r_ref) for RHF (reference xhole,
+        src/wfn_private@proc.F90:2423-2453), an f64 tensor on the points'
+        device."""
+        if self.wfntyp != "rhf":
+            raise NotImplementedError("xhole: only rhf supported "
+                                      "(as in the reference)")
+        pts = self._hole_points(points, device)
+        xr = torch.as_tensor(np.asarray(xref, float).reshape(1, 3),
+                             dtype=FDTYPE, device=pts.device)
+        mop = self.mo_values(pts)                              # (M, B)
+        mor = self.mo_values(xr)[:, 0]                         # (M,)
+        gam1 = mor @ mop
+        rho_ref = self.rho_eval_soa(xr.T, nder=0)[0]
+        rho_spin = torch.clamp(0.5 * rho_ref[0], min=1e-40)
+        return -(gam1 * gam1) / rho_spin
 
     def tile(self, reps=(2, 2, 2), gap: float = 4.0) -> "Wavefunction":
         """Non-interacting assembly: reps[0]*reps[1]*reps[2] displaced

@@ -28,7 +28,11 @@ def write_cube(path, data, origin, xmat, zatoms, positions,
         data = data.detach().cpu().numpy()
     data = np.asarray(data)
     n1, n2, n3 = data.shape
-    vfmt = (lambda v: f" {v:22.14E}") if precise else (lambda v: f" {v:12.5E}")
+    # one %-format per (i, j) row: lines of six values, the row's tail on
+    # a shorter line (the reference's layout), from Python floats
+    one = " %22.14E" if precise else " %12.5E"
+    row_fmt = (one * 6 + "\n") * (n3 // 6) + \
+        ((one * (n3 % 6) + "\n") if n3 % 6 else "")
     with open(path, "w") as f:
         f.write(comment1.rstrip("\n") + "\n")
         f.write(comment2.rstrip("\n") + "\n")
@@ -40,7 +44,5 @@ def write_cube(path, data, origin, xmat, zatoms, positions,
         for z, p in zip(zatoms, positions):
             f.write(f"{int(z):5d} {float(z):11.6f} {p[0]:11.6f} "
                     f"{p[1]:11.6f} {p[2]:11.6f}\n")
-        flat = data.reshape(n1 * n2, n3)
-        for row in flat:
-            for lo in range(0, n3, 6):
-                f.write("".join(vfmt(v) for v in row[lo:lo + 6]) + "\n")
+        for row in data.reshape(n1 * n2, n3).tolist():
+            f.write(row_fmt % tuple(row))

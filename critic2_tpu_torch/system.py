@@ -1,8 +1,9 @@
 """The System: one crystal + scalar fields.
 
 Role of the reference systemmod (src/systemmod.f90): hold a Crystal and a
-set of loaded fields and track the reference field. All fields of a
-system live on one device, chosen when the system is built.
+set of loaded fields, track the reference field, and evaluate
+expressions over the fields. All fields of a system live on one device,
+chosen when the system is built.
 """
 from __future__ import annotations
 
@@ -20,6 +21,9 @@ class System:
     fields: dict = dfield(default_factory=dict)   # id (int|str) -> Field
     iref: int | None = None                        # reference field id
     aliases: dict = dfield(default_factory=dict)
+    vars: dict = dfield(default_factory=dict)      # expression variables
+    pointprops: list = dfield(default_factory=list)
+    integrables: list = dfield(default_factory=list)
     device: torch.device = None
     zpsp: dict = dfield(default_factory=dict)     # system-level ZPSP
 
@@ -124,6 +128,51 @@ class System:
         if self.iref == fid:
             self.iref = max((k for k in self.fields if isinstance(k, int)
                              and k != 0), default=None)
+
+    # ------------------------------------------------------------------
+    # expressions (reference systemmod eval, src/systemmod.f90:196)
+    # ------------------------------------------------------------------
+    def eval_expr(self, expr: str, points_cart):
+        """An expression at Cartesian points (N, 3): (N,) f64 tensor on
+        the system's device."""
+        from .arithmetic import eval_expr
+
+        return eval_expr(expr, self, points_cart)
+
+    def load_field_expr(self, expr: str, fid=None, name=None,
+                        shape=None, ghost: bool = False):
+        """LOAD AS "expr": rasterize on a grid (default: reference grid
+        size or `shape`), or keep as a ghost field when ghost=True
+        (reference ifformat_as / ifformat_ghost, src/param.F90:132-165).
+        The nodes are built and evaluated on the system's device, 65,536
+        a call."""
+        from .analysis.integration import _grid_points
+        from .arithmetic import compile_expr
+        from .config import FDTYPE, resolve_device
+        from .fields.field import Field
+        from .fields.grid3 import Grid3
+
+        dev = resolve_device(self.device)
+        if ghost:
+            f = Field.ghost(self.crystal, compile_expr(expr, self),
+                            name=name or expr, device=dev)
+            return self.load_field(f, fid=fid, name=name)
+        if shape is None:
+            ref = self.fields.get(self.iref) if self.iref else None
+            shape = tuple(ref.grid.n) if (ref is not None and
+                                          ref.type == "grid") else (64, 64, 64)
+        shape = tuple(int(v) for v in shape)
+        fn = compile_expr(expr, self)
+        N = int(np.prod(shape))
+        out = torch.empty(N, dtype=FDTYPE, device=dev)
+        block = 1 << 16
+        for lo in range(0, N, block):
+            hi = min(N, lo + block)
+            out[lo:hi] = fn(_grid_points(self.crystal, shape, lo, hi,
+                                         FDTYPE, dev))
+        f = Field.from_grid(self.crystal, Grid3(out.reshape(shape)),
+                            name=name or expr)
+        return self.load_field(f, fid=fid, name=name)
 
     def identify_fragment_from_xyz(self, path: str):
         """Atom indices (0-based, cell list) matching the positions in an

@@ -199,12 +199,20 @@ def test_basin_integral_gauleg_matches_jax(cscl, monkeypatch):
     assert abs(ta - tq) < 1e-3 * tq
 
 
-def test_expr_is_not_ported(cscl):
+def test_expr_is_not_ported(cscl, monkeypatch):
+    """expr= now runs through the port's arithmetic.py: the reference
+    field as an expression gives the plain field's integrals exactly
+    (the same points and weights)."""
     _, ts = cscl
-    with pytest.raises(NotImplementedError, match="arithmetic.py"):
-        tbis.sphere_integral(ts, [0.0, 0.0, 0.0], 0.8, expr="$1")
-    with pytest.raises(NotImplementedError, match="arithmetic.py"):
-        tbis.basin_integral(ts, [0.0, 0.0, 0.0], expr="$1")
+    ref = f"${ts.iref if ts.iref is not None else 0}"
+    assert tbis.sphere_integral(ts, [0.0, 0.0, 0.0], 0.8, expr=ref) == \
+        tbis.sphere_integral(ts, [0.0, 0.0, 0.0], 0.8)
+    sph, _ = tleb.lebedev(74)
+    r_ias = np.full(len(sph), 2.0) + 0.3 * sph[:, 0]
+    monkeypatch.setattr(tbis, "bisect_basin", lambda *a, **k: r_ias)
+    assert tbis.basin_integral(ts, [0.0, 0.0, 0.0], expr=ref, level=1,
+                               nr=8) == \
+        tbis.basin_integral(ts, [0.0, 0.0, 0.0], level=1, nr=8)
 
 
 # -------------------------------------------------------------------- flux

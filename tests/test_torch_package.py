@@ -68,7 +68,7 @@ def _imported_roots(path):
 
 def test_no_jax_or_jax_package_import_anywhere():
     mods = list(_modules())
-    assert len(mods) >= 56
+    assert len(mods) >= 66
     assert not [p for p in mods if "_build" in p]
     bad = [(os.path.relpath(p, ROOT), r) for p in mods
            for r in _imported_roots(p) if r in FORBIDDEN]
@@ -81,6 +81,16 @@ def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys\n"
             "import critic2_tpu_torch\n"
             "import critic2_tpu_torch.analysis.autocp\n"
+            "import critic2_tpu_torch.arithmetic\n"
+            "import critic2_tpu_torch.analysis.ewald\n"
+            "import critic2_tpu_torch.analysis.hirshfeld\n"
+            "import critic2_tpu_torch.analysis.rhoplot\n"
+            "import critic2_tpu_torch.analysis.stm\n"
+            "import critic2_tpu_torch.analysis.struct\n"
+            "import critic2_tpu_torch.analysis.xdm\n"
+            "import critic2_tpu_torch.ops.brhole\n"
+            "import critic2_tpu_torch.ops.mdint\n"
+            "import critic2_tpu_torch.ops.xc\n"
             "import critic2_tpu_torch.analysis.bader\n"
             "import critic2_tpu_torch.analysis.bisect\n"
             "import critic2_tpu_torch.analysis.flux\n"
@@ -223,11 +233,11 @@ def _fragment_xyz():
      lambda: trace_paths(_grid_system().ref.eval_fn(),
                          torch.ones((1, 3), dtype=torch.float64),
                          escape=(np.zeros(3), 1.0))),
-    ("arithmetic.py",
+    (None,
      lambda: sphere_integral(_grid_system(), [0, 0, 0], 1.0, expr="$1")),
-    ("arithmetic.py",
-     lambda: basin_integral(_grid_system(), [0, 0, 0], expr="$1")),
-    ("arithmetic.py", lambda: intgrid(_grid_system(), discard="$1 < 0")),
+    (None, lambda: basin_integral(_grid_system(), [0, 0, 0], expr="$1",
+                                  level=1, nr=4)),
+    (None, lambda: intgrid(_grid_system(), discard="$1 < 0")),
     (None,
      lambda: _grid_system().load_field_as("promolecular", shape=(4, 4, 4),
                                           fragment=_fragment_xyz())),
@@ -242,7 +252,8 @@ def test_unported_branches_name_what_they_wait_for(what, call):
     they wait for; a case whose module is now ported (what=None: mesh
     seeds, autocp and makegraph on a wavefunction field, the tracer's
     escape sphere, molmotif, space-group names, Wyckoff letters, a
-    fragment given as an xyz file) runs instead."""
+    fragment given as an xyz file, expr= of the bisection integrals and
+    intgrid's discard=) runs instead."""
     if what is None:
         call()
         return
@@ -338,6 +349,66 @@ def test_molecular_entry_points_default_to_cuda(monkeypatch, entry):
         else:
             trace_paths_screened(w, np.zeros((1, 3)))
     assert isinstance(w, Wavefunction) and mol.device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", [
+    "rhf_energy", "eri_matrix", "overlap_kinetic_nuclear", "rinv_pairs",
+    "mep", "uslater", "xhole", "molcalc_hf", "molcalc-expr", "ewald_energy",
+    "ewald_potential", "eval_expr", "load_field_expr", "ghost",
+    "hirshfeld", "xdm_grid", "xdm_wfn", "stm", "cube", "point", "line",
+    "rdf", "compare-rdf"])
+def test_expression_slice_entry_points_default_to_cuda(monkeypatch, entry):
+    """The expression slice's entry points (ops/mdint, the hole functions,
+    molcalc, Ewald, the compiler, ghost fields, Hirshfeld, XDM, STM,
+    rhoplot, RDF) resolve their device as cuda when none is given, and
+    raise without it. Systems built on the CPU are re-wrapped with no
+    device, as the molecular test above does."""
+    from critic2_tpu_torch import arithmetic
+    from critic2_tpu_torch.analysis import (ewald, hirshfeld, molcalc,
+                                            rhoplot, stm, struct, xdm)
+    from critic2_tpu_torch.ops import mdint
+
+    mol = _molecule()
+    grid = _grid_system()
+    w = mol.ref.wfn
+    c = grid.crystal
+
+    def sys_(s):
+        return System(crystal=s.crystal, fields=dict(s.fields), iref=1)
+
+    calls = {
+        "rhf_energy": lambda: mdint.rhf_energy(w),
+        "eri_matrix": lambda: mdint.eri_matrix(w),
+        "overlap_kinetic_nuclear": lambda: mdint.overlap_kinetic_nuclear(w),
+        "rinv_pairs": lambda: mdint.rinv_pairs(w, np.zeros((1, 3))),
+        "mep": lambda: w.mep(np.zeros((1, 3))),
+        "uslater": lambda: w.uslater(np.zeros((1, 3))),
+        "xhole": lambda: w.xhole(np.zeros((1, 3)), np.zeros(3)),
+        "molcalc_hf": lambda: molcalc.molcalc_hf(sys_(mol)),
+        "molcalc-expr": lambda: molcalc.molcalc_integral(sys_(mol), "$1*2"),
+        "ewald_energy": lambda: ewald.ewald_energy(c),
+        "ewald_potential": lambda: ewald.ewald_potential(c,
+                                                         np.zeros((1, 3))),
+        "eval_expr": lambda: arithmetic.eval_expr("$1", sys_(grid),
+                                                  np.zeros((1, 3))),
+        "load_field_expr": lambda: sys_(grid).load_field_expr(
+            "$1", shape=(4, 4, 4)),
+        "ghost": lambda: Field.ghost(c, lambda x: x[0]),
+        "hirshfeld": lambda: hirshfeld.hirshfeld_charges(sys_(grid)),
+        "xdm_grid": lambda: xdm.xdm_grid(sys_(grid)),
+        "xdm_wfn": lambda: xdm.xdm_wfn(sys_(mol), lvl="small"),
+        "stm": lambda: stm.stm(sys_(grid), npts=(2, 2)),
+        "cube": lambda: rhoplot.cube(sys_(grid), n=(2, 2, 2)),
+        "point": lambda: rhoplot.point(sys_(grid), [0, 0, 0]),
+        "line": lambda: rhoplot.line(sys_(grid), [0, 0, 0], [1, 0, 0],
+                                     npts=3),
+        "rdf": lambda: struct.rdf(c, rend=4.0, npts=11),
+        "compare-rdf": lambda: struct.compare([c, c], method="rdf",
+                                              rend=4.0, npts=11),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
 
 
 def test_explicit_cpu_device_and_dtypes():
