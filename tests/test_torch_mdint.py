@@ -250,20 +250,25 @@ def _hole_fixture(cls):
 
 @pytest.fixture(scope="module")
 def holes():
+    """The fixture normalized with the port's S (equal to the JAX
+    package's to 1e-12, test_high_l_one_electron_integrals), both
+    packages then holding the same coefficients."""
     jw = _hole_fixture(JWfn)
-    S, _, _ = jm.overlap_kinetic_nuclear(jw)
-    jw.cmo = jw.cmo / np.sqrt(float(jw.cmo[0] @ np.asarray(S) @ jw.cmo[0]))
+    S, _, _ = tm.overlap_kinetic_nuclear(_port(jw), device=CPU)
+    jw.cmo = jw.cmo / np.sqrt(float(jw.cmo[0] @ S.numpy() @ jw.cmo[0]))
     jw._dev.clear()
     return jw, _port(jw)
 
 
 def test_rinv_pairs_matches_jax(holes):
-    """(B, P, P) rinv integrals at 21 seeded points (chunks of 8 and a
-    ragged tail), 1e-12 relative."""
+    """(B, P, P) rinv integrals at 24 seeded points (three chunks of 8),
+    1e-12 relative; a ragged tail of 5 points gives the same numbers as
+    whole chunks (exactly)."""
     jw, tw = holes
-    pts = np.random.default_rng(3).normal(size=(21, 3))
+    pts = np.random.default_rng(3).normal(size=(24, 3))
     got = tm.rinv_pairs(tw, pts, device=CPU)
-    assert tuple(got.shape) == (21, 4, 4)
+    assert tuple(got.shape) == (24, 4, 4)
+    assert torch.equal(tm.rinv_pairs(tw, pts[:21], device=CPU), got[:21])
     np.testing.assert_allclose(got.numpy(), np.asarray(
         jm.rinv_pairs(jw, pts)), rtol=1e-12, atol=1e-15)
 
