@@ -134,6 +134,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      screened evaluator with xc_eval called directly (1e-10); mep,
      uslater and xhole on 4,096 monomer points and mep on the tile
      (card against CPU 1e-10); xdm_wfn on the monomer (1e-10);
+ 12. the remaining field formats (runs after phase 11, before phase 7's
+     gradient-path parts), every input written by this script's own
+     writers from a seed. pwc: a 2-atom cubic cell, nk 4x4x4, 72^3,
+     nbnd 4, plane waves cut to |G| <= 3 (reciprocal-basis units, so the
+     density has about a hundred maxima, printed as nattr) and a
+     wannier90 chk with random unitary U per k, centres and spreads;
+     intgrid YT, then deloc_wannier with useu and wancut 4 and without
+     U (populations sum to 8 e within 1e-6 and equal the YT basin
+     populations within 5e-6 e; LI <= N), the yt_pass and yt_gs_pass launches of each call per
+     attractor, the walls of the read, the basin supports, the Wannier
+     stack, Sij and Fa, and peak memory; CUBE UNK and PSINK written and
+     MLWF in memory, card against a CPU twin (1e-12 relative); the
+     same at nk 2x2x2 / 32^3, Sij and Fa card against the port on the CPU
+     (1e-10). Evaluators at 1,048,576 points, nder=2 (ms per 65,536
+     points), card against CPU on 4,096 of them (value 1e-12 relative,
+     derivatives 1e-10): the WIEN2k cosine field of tests/test_wien.py
+     (rho = 2 + cos(qz) within 1e-8 in the interstitial and 1e-6 in the
+     sphere, Field hf[2,2] = -q^2 cos(qz) within 1e-8), a wide WIEN2k
+     pair (2 atoms, JRI 781, LM terms to l = 8, 3,000 complex plane
+     waves) and an elk pair (lmaxvr 7, nrmt 300, ngvec 3,000), each
+     Hessian against central differences of the card's gradient (1e-6
+     relative, points off the spheres and radial nodes); aiPI (the ions
+     of tests/test_pi.py in the rocksalt primitive cell) with autocp
+     card against CPU (Poincare-Hopf 0, the same CP list within 1e-8
+     bohr); DFTB+ with the test_dftb.py basis on a 64-atom cell, Gamma
+     real and two complex k-points, at 131,072 points (card against CPU
+     on 512), gkin and elf of expressions card against CPU (1e-10);
 then one JSON line of kernel records and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -2355,6 +2382,787 @@ def expressions_phase(sl, wf, card):
 
 
 
+# ---------------------------------------------------------------- phase 12
+# The field formats: synthetic inputs written by this script's own
+# writers (the repository holds no WIEN2k, elk, QE or DFTB+ output).
+
+FMT_NK = (4, 4, 4)             # k-grid of realistic deloc runs
+FMT_N = 72                     # their 60-100^3 FFT grids
+FMT_NBND = 4
+FMT_GMAX = 3                   # plane waves |G| <= 3 (reciprocal basis)
+FMT_A = 10.0                   # cubic cell of the pwc leg (bohr)
+EVAL_POINTS = 1 << 20          # evaluator points, nder=2
+EVAL_CHUNK = 1 << 16           # ms are reported per this many points
+EVAL_SUB = 4096                # card-against-CPU subsample
+DFTB_POINTS = 1 << 17
+DFTB_SUB = 512                 # the CPU's DFTB+ subsample (64 atoms)
+
+
+def fmt_gvectors(gmax):
+    import numpy as np
+
+    r = np.arange(-gmax, gmax + 1)
+    g = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    return g[(g * g).sum(1) <= gmax * gmax]
+
+
+def random_unitaries(rng, nks, nw):
+    import numpy as np
+
+    m = rng.normal(size=(nks, nw, nw)) + 1j * rng.normal(size=(nks, nw, nw))
+    return np.linalg.qr(m)[0]
+
+
+def write_pwc_file(path, at, nk, nbnd, n, rng, gmax):
+    """A pw2critic.x pwc file (the record order of read_pwc,
+    src/grid3mod@proc.f90:755-840): random orthonormal coefficients on
+    the |G| <= gmax plane waves at every k-point of the nk grid, every
+    band occupied once (occupation = k weight). Returns the fractional
+    k-points."""
+    import numpy as np
+
+    from critic2_tpu_torch.fields.qe import FortranFile
+
+    g = fmt_gvectors(gmax)
+    ngms = len(g)
+    nl = (1 + (g[:, 0] % n[0]) + n[0] * ((g[:, 1] % n[1])
+          + n[1] * (g[:, 2] % n[2]))).astype(np.int32)
+    nks = int(np.prod(nk))
+    kf = np.stack(np.meshgrid(*[np.arange(k) / k for k in nk],
+                              indexing="ij"), -1).reshape(-1, 3)
+    wk = np.full(nks, 1.0 / nks)
+    occ = np.tile(wk[:, None], (1, nbnd))
+    evc = np.linalg.qr(rng.normal(size=(nks, ngms, nbnd))
+                       + 1j * rng.normal(size=(nks, ngms, nbnd)))[0]
+    with FortranFile(path, "wb") as fh:
+        fh.write_record(np.int32(1))                     # version
+        fh.write_record(np.array([1, 2], np.int32))      # nsp, nat
+        fh.write_record(b"He")                           # atm
+        fh.write_record(np.array([1, 1], np.int32))      # ityp
+        fh.write_record(np.zeros(6))                     # tau
+        fh.write_record(np.asarray(at, np.float64).flatten(order="F"))
+        fh.write_record(np.array([nks, nbnd, 1, 0], np.int32))
+        fh.write_record(np.asarray(nk, np.int32))
+        fh.write_record(np.asarray(n, np.int32))
+        fh.write_record(np.array([ngms, ngms], np.int32))
+        fh.write_record((kf @ np.linalg.inv(at)).reshape(-1))
+        fh.write_record(wk)
+        fh.write_record(rng.normal(size=(nks, nbnd)).reshape(-1))
+        fh.write_record(occ.reshape(-1))
+        fh.write_record(np.full(nks, ngms, np.int32))
+        fh.write_record(np.tile(np.arange(1, ngms + 1, dtype=np.int32),
+                                (nks, 1)).reshape(-1))
+        fh.write_record(nl)
+        for ik in range(nks):
+            for ib in range(nbnd):
+                fh.write_record(evc[ik, :, ib].astype(np.complex128))
+    return kf
+
+
+def write_chk_file(path, nbnd, nk, kf, rlatt, u, centers, spreads):
+    """A wannier90 .chk as read_wannier_chk walks it (centres Cartesian,
+    spreads squared)."""
+    import numpy as np
+
+    from critic2_tpu_torch.fields.qe import FortranFile
+
+    nks = len(kf)
+    with FortranFile(path, "wb") as fh:
+        fh.write_record(b" " * 33)
+        fh.write_record(np.int32(nbnd))
+        fh.write_record(np.int32(0))                     # excluded bands
+        fh.write_record(b"")
+        fh.write_record(np.asarray(rlatt, np.float64).flatten(order="F"))
+        fh.write_record(2 * np.pi * np.linalg.inv(rlatt).T.flatten(order="F"))
+        fh.write_record(np.int32(nks))
+        fh.write_record(np.asarray(nk, np.int32))
+        fh.write_record(kf.reshape(-1))
+        fh.write_record(np.int32(8))                     # nntot
+        fh.write_record(np.int32(u.shape[1]))
+        fh.write_record(b" " * 20)
+        fh.write_record(np.int32(0))                     # not disentangled
+        fh.write_record(u.transpose(0, 2, 1).astype(np.complex128)
+                        .reshape(-1))
+        fh.write_record(np.zeros(2, np.complex128))      # m matrix
+        fh.write_record(np.asarray(centers, np.float64).reshape(-1))
+        fh.write_record(np.asarray(spreads, np.float64) ** 2)
+
+
+def pwc_case(tmp, dev, nk, n, seed):
+    """Write a pwc + chk pair, load it on `dev` (a 2-atom cubic cell) and
+    run intgrid YT; returns the system, the integration result and the
+    wall of the load."""
+    import numpy as np
+
+    from critic2_tpu_torch import System
+    from critic2_tpu_torch.analysis.integration import intgrid
+    from critic2_tpu_torch.convert import crystal_from_arrays
+
+    rng = np.random.default_rng(seed)
+    at = np.eye(3) * FMT_A
+    tag = "x".join(str(k) for k in nk) + f"-{n}"
+    pwc = os.path.join(tmp, f"{tag}.pwc")
+    chk = os.path.join(tmp, f"{tag}.chk")
+    kf = write_pwc_file(pwc, at, nk, FMT_NBND, (n, n, n), rng, FMT_GMAX)
+    frac = rng.uniform(0, 1, (FMT_NBND, 3)) * np.asarray(nk)
+    write_chk_file(chk, FMT_NBND, nk, kf, at,
+                   random_unitaries(rng, len(kf), FMT_NBND),
+                   frac @ at.T, rng.uniform(1.5, 2.5, FMT_NBND))
+    c = crystal_from_arrays(at, [[0.0] * 3, [0.5] * 3], [0, 0],
+                            [("He", 2)])
+    s = System.from_structure(c, device=dev)
+    _, load_s = wall_s(lambda: s.load_field(pwc, file2=chk))
+    res = intgrid(s, method="yt")
+    return s, res, load_s
+
+
+def deloc_bars(res, pop_yt, tag):
+    """The sum rules of a deloc run: all 8 electrons, the YT basin
+    populations, LI <= N (wancut drops only overlaps far below the
+    bars here)."""
+    import numpy as np
+
+    pop = res.population()
+    dtot = abs(pop.sum() - 2.0 * FMT_NBND)
+    dyt = float(np.abs(pop - pop_yt).max())
+    check(dtot <= 1e-6, f"{tag}: populations sum to {pop.sum():.9f} e")
+    check(dyt <= 5e-6, f"{tag}: populations {dyt:.3e} e off YT's")
+    check(np.all(res.li() <= pop + 1e-12), f"{tag}: LI > N")
+    return dtot, dyt
+
+
+def pwc_leg(dev, card):
+    """Phase 12a: pwc -> YT -> deloc at nk 4x4x4 on a 72^3 grid (W is
+    256 x 373,248 complex128 = 1.53 GB on the card), the reduced 2x2x2 /
+    32^3 leg card against CPU, and the state cubes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch import System, convert
+    from critic2_tpu_torch.analysis.deloc import deloc_wannier
+    from critic2_tpu_torch.analysis.rhoplot import cube_states
+    from critic2_tpu_torch.fields.field import Field
+    from critic2_tpu_torch.fields.grid3 import Grid3
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    out, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        s, ires, walls["read_pwc_s"] = pwc_case(tmp, dev, FMT_NK, FMT_N, 81)
+        qe, decomp = s.ref.grid.qe, ires.decomp
+        rho = s.ref.grid.f
+        nattr = decomp.nattr
+        scale = s.crystal.volume / rho.numel()
+        pop_yt = decomp.integrate(rho.reshape(-1)) * scale
+        log(f"formats: pwc nk {FMT_NK}, {FMT_N}^3, nbnd {FMT_NBND}, "
+            f"|G| <= {FMT_GMAX} ({qe.igk_k.shape[1]} plane waves), nattr "
+            f"{nattr}, read {walls['read_pwc_s']:.3f} s")
+        out["nattr"] = nattr
+        runs = (("u_wancut4", True, 4.0), ("nou", False, None))
+        for tag, useu, wancut in runs:
+            if torch.device(dev).type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            stats = {}
+            res, wall = wall_s(lambda: deloc_wannier(
+                s.crystal, decomp, qe, useu=useu, wancut=wancut, device=dev,
+                stats=stats))
+            launches = dict(ops.launches)
+            rec = {"wall_s": wall, **{f"{k}_s": v for k, v in stats.items()},
+                   "launches": launches,
+                   "launches_per_attractor": {k: v / nattr for k, v in
+                                              launches.items()},
+                   "pop_sum": float(res.population().sum()),
+                   "pop_vs_yt": float(np.abs(res.population()
+                                             - pop_yt).max())}
+            if torch.device(dev).type == "cuda":
+                rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                check(launches["yt_pass"] >= nattr
+                      and launches["yt_gs_pass"] >= 16 * nattr,
+                      f"deloc {tag} launches {launches} for {nattr} "
+                      "attractors")
+            check(np.all(np.isfinite(res.fa)), f"deloc {tag}: Fa not finite")
+            rec["dtot"], rec["dyt"] = deloc_bars(res, pop_yt, f"deloc {tag}")
+            out[tag] = rec
+            log(f"formats: deloc useu={useu} wancut={wancut}: "
+                f"{wall:.3f} s (supports {stats['support']:.3f}, Wannier "
+                f"stack {stats['wannier']:.3f}, Sij {stats['sij']:.3f}, Fa "
+                f"{stats['fa']:.3f}), launches {launches} = "
+                f"{rec['launches_per_attractor']} per attractor, sum N "
+                f"{rec['pop_sum']:.9f}, |N - N(YT)| max "
+                f"{rec['pop_vs_yt']:.3e}, peak "
+                f"{rec.get('peak_gib', float('nan')):.2f} GiB on {card}")
+        out["launches"] = out["u_wancut4"]["launches"]
+
+        # CUBE UNK/PSINK written, MLWF in memory; card against a CPU twin
+        # of the same states (carried across by convert, no FFT redone)
+        qc = convert.qedata_from_arrays(**convert.qedata_to_arrays(qe),
+                                        device="cpu")
+        sc = System.from_structure(s.crystal, device="cpu")
+        sc.load_field(Field.from_grid(s.crystal, Grid3(rho.cpu(), qe=qc)))
+        errs = {}
+        for kind, write in (("unk", True), ("psink", True), ("mlwf", False)):
+            root = os.path.join(tmp, "st")
+            (a, files), w = wall_s(lambda: cube_states(
+                s, kind, 1, ik=2, fileroot=root, write=write))
+            b, _ = cube_states(sc, kind, 1, ik=2, write=False)
+            errs[kind] = rel_err(a.cpu(), b)
+            check(errs[kind] <= 1e-12,
+                  f"CUBE {kind}: card and CPU differ by {errs[kind]:.3e}")
+            check(len(files) == (2 if write else 0)
+                  and all(os.path.getsize(p) > 0 for p in files),
+                  f"CUBE {kind} files {files}")
+            walls[f"cube_{kind}_s"] = w
+        out["cube_rel_err"] = errs
+        del a, b, sc, qc, s, ires, decomp, qe, rho
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+
+        # the reduced leg: Sij and Fa, card against CPU
+        sij = {}
+        for d in (dev, "cpu"):
+            sd, rd, _ = pwc_case(tmp, d, (2, 2, 2), 32, 82)
+            sij[str(d)] = deloc_wannier(sd.crystal, rd.decomp, sd.ref.grid.qe,
+                                        useu=True, wancut=4.0, device=d)
+        a, b = sij[str(dev)], sij["cpu"]
+        check(a.nattr == b.nattr and np.array_equal(a.xattr, b.xattr),
+              "reduced deloc: attractors differ between card and CPU")
+        dS = float(np.abs(a.sij[0] - b.sij[0]).max())
+        dF = float(np.abs(a.fa - b.fa).max())
+        check(dS <= 1e-10 and dF <= 1e-10,
+              f"reduced deloc: Sij {dS:.3e}, Fa {dF:.3e} card against CPU")
+        out["reduced"] = {"nattr": a.nattr, "sij_err": dS, "fa_err": dF}
+    out["walls_s"] = walls
+    log(f"formats: CUBE unk/psink written, mlwf in memory, card = CPU "
+        f"within {max(errs.values()):.3e}; reduced 2x2x2/32^3 deloc "
+        f"(nattr {a.nattr}) Sij {dS:.3e}, Fa {dF:.3e} card against CPU")
+    return out
+
+
+# -- LAPW writers ---------------------------------------------------------
+
+def wien_struct_text(a, atoms, jri, rnot, rmt):
+    """A WIEN2k .struct in the reference's fixed formats: a cubic P cell,
+    one inequivalent atom per entry of `atoms` (fractional positions,
+    iatnr < 0: no cubic harmonics), the identity as the only operation."""
+    lines = ["synthetic field",
+             f"{'P':<4s}{'LATTICE,NONEQUIV.ATOMS':<23s}{len(atoms):>3d} NREL",
+             "MODE OF CALC=RELA unit=bohr",
+             f"{a:10.5f}{a:10.5f}{a:10.5f}{90.0:10.5f}{90.0:10.5f}"
+             f"{90.0:10.5f}"]
+    for i, p in enumerate(atoms):
+        lines.append(f"ATOM{-(i + 1):>4d}: X={p[0]:10.7f} Y={p[1]:10.7f} "
+                     f"Z={p[2]:10.7f}")
+        lines.append(f"{'MULT=':>15s}{1:>2d}")
+        lines.append(f"{'X' + str(i):<10s}{'NPT=':>5s}{jri:>5d}{'R0=':>5s}"
+                     f"{rnot:10.8f}{'RMT=':>5s}{rmt:10.5f}{'Z:':>5s}"
+                     f"{8.0:5.1f}")
+        for j in range(3):
+            lines.append(f"{'LOCAL ROT MATRIX:':<20s}" + "".join(
+                f"{1.0 if k == j else 0.0:10.8f}" for k in range(3)))
+    lines.append(f"{1:>4d}")
+    for j in range(3):
+        lines.append("".join(f"{1 if k == j else 0:2d}" for k in range(3))
+                     + f"{0.0:10.5f}")
+    lines.append(f"{1:>8d}")
+    return "\n".join(lines) + "\n"
+
+
+def wien_clmsum_text(tables, waves):
+    """A clmsum: per atom a list of ((l1, m), radial values) and the plane
+    waves ((k1, k2, k3), re, im), in readslm/readk's fixed formats."""
+    import numpy as np
+
+    lines = ["head1", "head2", "head3"]
+    for lms in tables:
+        lines += ["skip", f"{'NUMBER OF LM':<15s}{len(lms):>3d}", "skip",
+                  "skip"]
+        for (l1, m), vals in lms:
+            lines.append(" " * 15 + f"{l1:3d}" + " " * 5 + f"{m:2d}")
+            lines.append("skip")
+            txt = np.char.mod("%19.12E", vals)
+            for k in range(0, len(vals), 4):
+                lines.append("   " + "".join(txt[k:k + 4]))
+            lines += ["skip", "skip"]
+        lines += ["skip"] * 4
+    lines += ["skip", "skip", " " * 13 + f"{len(waves):6d}"]
+    for k, re, im in waves:
+        lines.append("   " + "".join(f"{v:5d}" for v in k)
+                     + f"{re:19.12E}{im:19.12E}")
+    return "\n".join(lines) + "\n"
+
+
+def wien_cosine_files(d):
+    """The field of tests/test_wien.py: rho = 2 + cos(q z), a = 8 bohr,
+    RMT 2, JRI 401, the exact Rayleigh expansion inside the sphere."""
+    import math
+
+    import numpy as np
+    from scipy.special import spherical_jn
+
+    a, rmt, jri, rnot = 8.0, 2.0, 401, 1e-4
+    q = 2 * math.pi / a
+    r = rnot * np.exp(np.arange(jri) * math.log(rmt / rnot) / (jri - 1))
+    lms = []
+    for l in range(0, 13, 2):
+        cl = (-1.0) ** (l // 2) * math.sqrt(4 * math.pi * (2 * l + 1)) \
+            * spherical_jn(l, q * r)
+        if l == 0:
+            cl = (cl + 2.0 * math.sqrt(4 * math.pi)) * math.sqrt(4 * math.pi)
+        lms.append(((l, 0), cl * r * r))
+    waves = [((0, 0, 0), 2.0, 0.0), ((0, 0, 1), 0.5, 0.0),
+             ((0, 0, -1), 0.5, 0.0)]
+    st, cl = os.path.join(d, "cos.struct"), os.path.join(d, "cos.clmsum")
+    with open(st, "w") as fh:
+        fh.write(wien_struct_text(a, [(0.0, 0.0, 0.0)], jri, rnot, rmt))
+    with open(cl, "w") as fh:
+        fh.write(wien_clmsum_text([lms], waves))
+    return cl, st, q, rmt
+
+
+def smooth_radial(rng, r, scale):
+    """A smooth random radial table r^2 sum_p c_p exp(-b_p r)."""
+    import numpy as np
+
+    c = rng.normal(size=3) * scale
+    b = rng.uniform(0.5, 2.0, 3)
+    return r * r * (c[None, :] * np.exp(-b[None, :] * r[:, None])).sum(1)
+
+
+def wien_wide_files(d, rng):
+    """Two inequivalent atoms, JRI 781, LM terms to l = 8 (81 a sphere,
+    cosine and sine harmonics), 3,000 plane waves with complex
+    coefficients."""
+    import math
+
+    import numpy as np
+
+    a, rmt, jri, rnot = 10.0, 2.2, 781, 5e-5
+    r = rnot * np.exp(np.arange(jri) * math.log(rmt / rnot) / (jri - 1))
+    tables = []
+    for _ in range(2):
+        lms = [((0, 0), smooth_radial(rng, r, 1.0) + 2.0 * r * r)]
+        for l in range(1, 9):
+            lms.append(((l, 0), smooth_radial(rng, r, 0.3 / l)))
+            for m in range(1, l + 1):
+                lms.append(((l, m), smooth_radial(rng, r, 0.3 / l)))
+                lms.append(((-l, m), smooth_radial(rng, r, 0.3 / l)))
+        tables.append(lms)
+    R = np.arange(-10, 11)
+    k = np.stack(np.meshgrid(R, R, R, indexing="ij"), -1).reshape(-1, 3)
+    k = k[np.argsort((k * k).sum(1), kind="stable")][:3000]
+    amp = np.exp(-(k * k).sum(1) / 40.0)
+    re = rng.normal(size=len(k)) * amp
+    im = rng.normal(size=len(k)) * amp
+    re[0], im[0] = 1.0, 0.0
+    waves = [(tuple(int(v) for v in kk), x, y) for kk, x, y in zip(k, re, im)]
+    st, cl = os.path.join(d, "wide.struct"), os.path.join(d, "wide.clmsum")
+    with open(st, "w") as fh:
+        fh.write(wien_struct_text(a, [(0.0, 0.0, 0.0), (0.5, 0.5, 0.5)],
+                                  jri, rnot, rmt))
+    with open(cl, "w") as fh:
+        fh.write(wien_clmsum_text(tables, waves))
+    return cl, st
+
+
+def frec(data: bytes) -> bytes:
+    import struct as _st
+
+    return _st.pack("<i", len(data)) + data + _st.pack("<i", len(data))
+
+
+def elk_wide_files(d, rng):
+    """GEOMETRY.OUT and STATE.OUT of one species, two atoms in a 10 bohr
+    cubic cell: lmaxvr 7, nrmt 300, a 24^3 interstitial grid and ngvec
+    3,000."""
+    import math
+
+    import numpy as np
+
+    a, rmt, nr, r0, lmax, ngrid = 10.0, 2.2, 300, 5e-5, 7, (24, 24, 24)
+    with open(os.path.join(d, "GEOMETRY.OUT"), "w") as fh:
+        fh.write("\navec\n" + "".join(
+            "  " + "  ".join(f"{a if i == j else 0.0:.10f}" for i in range(3))
+            + "\n" for j in range(3))
+            + "\natoms\n   1   : nspecies\n'X.in'\n   2   : natoms\n"
+            "  0.0 0.0 0.0  0.0 0.0 0.0\n  0.5 0.5 0.5  0.0 0.0 0.0\n")
+    r = r0 * np.exp(np.arange(nr) * math.log(rmt / r0) / (nr - 1))
+    lmmax = (lmax + 1) ** 2
+    rhomt = np.zeros((lmmax, nr, 2))
+    for ia in range(2):
+        for k in range(lmmax):
+            rhomt[k, :, ia] = (smooth_radial(rng, r, 1.0 / (1 + k)) / (r * r)
+                               + (2.0 * math.sqrt(4 * math.pi)
+                                  if k == 0 else 0.0))
+    x = [np.arange(n) / n for n in ngrid]
+    X, Y, Z = np.meshgrid(*x, indexing="ij")
+    rho_g = 2.0 + 0.3 * np.cos(2 * np.pi * X) * np.sin(4 * np.pi * Y) \
+        + 0.2 * np.cos(2 * np.pi * (Y + 2 * Z))
+
+    def ints(*v):
+        return frec(np.asarray(v, dtype="<i4").tobytes())
+
+    def flts(v):
+        return frec(np.asarray(v, dtype="<f8").tobytes())
+
+    blob = (ints(9, 5, 14) + ints(0) + ints(1) + ints(lmmax) + ints(nr)
+            + ints(nr) + ints(2) + ints(nr) + flts(r) + ints(nr) + flts(r)
+            + ints(*ngrid) + ints(3000) + ints(0) + ints(1) + ints(0)
+            + ints(0) + ints(0) + ints(0)
+            + flts(np.concatenate([rhomt.reshape(-1, order="F"),
+                                   rho_g.reshape(-1, order="F")])))
+    with open(os.path.join(d, "STATE.OUT"), "wb") as fh:
+        fh.write(blob)
+    return (os.path.join(d, "STATE.OUT"), os.path.join(d, "GEOMETRY.OUT"))
+
+
+def away_from_spheres(x, pos, P, rmt, nodes, h):
+    """Mask of points whose central-difference stencil (step h) stays on
+    one side of every sphere and between two radial nodes of the log
+    grid (the 4-node radial stencil switches there)."""
+    import numpy as np
+
+    ok = np.ones(len(x), bool)
+    Pinv = np.linalg.inv(P)
+    for p in pos:
+        f = (x - p) @ Pinv.T
+        dc = (f - np.rint(f)) @ P.T
+        r = np.linalg.norm(dc, axis=1)
+        ok &= np.abs(r - rmt) > 20 * h
+        t = np.log(np.maximum(r, nodes[0]) / nodes[0]) / nodes[1]
+        dnode = np.abs(t - np.rint(t)) * r * nodes[1]
+        ok &= (r >= rmt) | (dnode > 20 * h)
+    return ok
+
+
+def eval_leg(name, field_dev, field_cpu, x, dev, card, fd=None):
+    """nder=2 at every point of x in chunks of EVAL_CHUNK (the ms per
+    chunk reported), the card against the CPU on EVAL_SUB points, and,
+    with fd = (mask, h), the Hessian against central differences of the
+    card's own gradient on the subsample points the mask keeps."""
+    import numpy as np
+    import torch
+
+    xd = torch.as_tensor(x, dtype=torch.float64, device=dev)
+    outs = []
+    field_dev.grd(xd[:64], nder=2)                  # warm: first launches
+
+    def run():
+        outs.clear()
+        for lo in range(0, len(x), EVAL_CHUNK):
+            outs.append(field_dev.grd(xd[lo:lo + EVAL_CHUNK], nder=2))
+
+    _, w = wall_s(run)
+    f = torch.cat([o[0] for o in outs])
+    check(bool(torch.isfinite(f).all()), f"{name}: non-finite values")
+    sub = x[:EVAL_SUB]
+    a = [torch.cat([o[i] for o in outs], dim=-1)[..., :EVAL_SUB]
+         for i in range(3)]
+    b = field_cpu.grd(sub, nder=2)
+    ev, eg, eh = (rel_err(a[i].cpu(), b[i]) for i in range(3))
+    check(ev <= 1e-12 and eg <= 1e-10 and eh <= 1e-10,
+          f"{name}: card against CPU value {ev:.3e}, gradient {eg:.3e}, "
+          f"Hessian {eh:.3e}")
+    rec = {"ms_per_65536": 1e3 * w * EVAL_CHUNK / len(x), "points": len(x),
+           "err_value": ev, "err_grad": eg, "err_hess": eh}
+    if fd is not None:
+        mask, h = fd
+        xs = sub[mask]
+        H = np.zeros((len(xs), 3, 3))
+        for k in range(3):
+            e = np.zeros(3)
+            e[k] = h
+            gp = field_dev.grd(xs + e, nder=1)[1].cpu().numpy()
+            gm = field_dev.grd(xs - e, nder=1)[1].cpu().numpy()
+            H[:, :, k] = ((gp - gm) / (2 * h)).T
+        h6 = a[2][:, mask].cpu().numpy()       # [xx, xy, xz, yy, yz, zz]
+        mat = h6[[0, 1, 2, 1, 3, 4, 2, 4, 5]].T.reshape(-1, 3, 3)
+        rec["err_fd"] = float(np.abs(mat - H).max() / np.abs(H).max())
+        rec["fd_points"] = int(mask.sum())
+        check(rec["err_fd"] <= 1e-6, f"{name}: Hessian against central "
+              f"differences {rec['err_fd']:.3e} relative")
+    log(f"formats: {name} nder=2 {1e3 * w * EVAL_CHUNK / len(x):.3f} ms per "
+        f"65,536 points ({len(x)} points, {w:.3f} s) on {card}; card = CPU "
+        f"value {ev:.3e}, gradient {eg:.3e}, Hessian {eh:.3e}"
+        + (f"; Hessian = central differences {rec['err_fd']:.3e} on "
+           f"{rec['fd_points']} points" if fd is not None else ""))
+    return rec, a
+
+
+def lapw_leg(dev, card, npts):
+    """Phase 12b: the WIEN2k (cosine field and the wide pair) and elk
+    evaluators."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch import System
+    from critic2_tpu_torch.fields.elk import ElkField
+    from critic2_tpu_torch.fields.wien import WienField
+
+    rng = np.random.default_rng(83)
+    out = {}
+    h = 1e-4
+    with tempfile.TemporaryDirectory() as d:
+        # the cosine field: exact values, and d2/dz2 at hf[2, 2]
+        cl, st, q, rmt = wien_cosine_files(d)
+        wd = WienField.from_files(cl, st, device=dev)
+        wc = WienField.from_files(cl, st, device="cpu")
+        x = rng.uniform(0, 8.0, (npts, 3))
+        pos = np.zeros((1, 3))
+        mask = away_from_spheres(x[:EVAL_SUB], pos, np.eye(3) * 8.0, rmt,
+                                 (1e-4, math.log(rmt / 1e-4) / 400), h)
+        out["wien_cosine"], a = eval_leg("WIEN2k cosine", wd, wc, x, dev,
+                                         card, (mask, h))
+        f = a[0].cpu().numpy()
+        r = np.linalg.norm((x[:EVAL_SUB] + 4.0) % 8.0 - 4.0, axis=1)
+        exact = 2.0 + np.cos(q * x[:EVAL_SUB, 2])
+        inter = r > rmt + 1e-6
+        dval = float(np.abs(f - exact)[inter].max())
+        dmt = float(np.abs(f - exact)[~inter].max())
+        s = System.from_structure(st, device=dev)
+        s.load_field(cl)
+        hf = s.ref.grd(x[:EVAL_SUB][inter], nder=2).hf.cpu().numpy()
+        dzz = float(np.abs(hf[:, 2, 2] + q * q * np.cos(
+            q * x[:EVAL_SUB][inter][:, 2])).max())
+        check(dval <= 1e-8 and dmt <= 1e-6 and dzz <= 1e-8,
+              f"WIEN2k cosine: value {dval:.3e} (interstitial), {dmt:.3e} "
+              f"(spheres), d2/dz2 at hf[2,2] {dzz:.3e}")
+        out["wien_cosine"].update(exact_inter=dval, exact_mt=dmt,
+                                  hzz_exact=dzz)
+        log(f"formats: WIEN2k cosine rho = 2 + cos(qz) within {dval:.3e} "
+            f"(interstitial) / {dmt:.3e} (spheres); Field hf[2,2] = "
+            f"-q^2 cos(qz) within {dzz:.3e}")
+        del wd, wc, s
+
+        # the wide pair
+        cl, st = wien_wide_files(d, rng)
+        wd = WienField.from_files(cl, st, device=dev)
+        wc = WienField.from_files(cl, st, device="cpu")
+        x = rng.uniform(0, 10.0, (npts, 3))
+        pos = np.array([[0.0] * 3, [5.0] * 3])
+        mask = away_from_spheres(x[:EVAL_SUB], pos, np.eye(3) * 10.0, 2.2,
+                                 (5e-5, math.log(2.2 / 5e-5) / 780), h)
+        out["wien_wide"], _ = eval_leg("WIEN2k wide (2 atoms, JRI 781, "
+                                       "l <= 8, 3,000 waves)", wd, wc, x,
+                                       dev, card, (mask, h))
+        del wd, wc
+
+        # elk
+        state, geom = elk_wide_files(d, rng)
+        ed = ElkField.from_files(state, geom, device=dev)
+        ec = ElkField.from_files(state, geom, device="cpu")
+        mask = away_from_spheres(x[:EVAL_SUB], pos, np.eye(3) * 10.0, 2.2,
+                                 (5e-5, math.log(2.2 / 5e-5) / 299), h)
+        out["elk"], _ = eval_leg("elk (lmaxvr 7, nrmt 300, ngvec 3,000)",
+                                 ed, ec, x, dev, card, (mask, h))
+        del ed, ec
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+ION_HE = """ PI7 STO
+ He ground state, 2 STO fit
+ HE        2.0
+ 1
+ 2
+ 1 1
+ 1.45 2.9
+ 1
+ 2.0
+ -0.918
+ 0.8 0.3
+"""
+
+ION_LI = """ STO
+ Li ion
+ LI        3.0
+ 2
+ 2 1
+ 1 1 2
+ 2.7 4.5 0.65
+ 1 1
+ 2.0 1.0
+ -2.5 -0.2
+ 0.9 0.2
+ 1.0
+"""
+
+
+class PiShim:
+    """grd of a PiField in the (f, grad (3, N), hess6) form eval_leg
+    reads, the Hessian rows [xx, xy, xz, yy, yz, zz]."""
+
+    def __init__(self, pf):
+        self.pf = pf
+
+    def grd(self, x, nder=2):
+        f, g, h = self.pf.eval(x, nder=nder)
+        return f, g.T, h[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].T
+
+
+def pi_leg(dev, card, npts):
+    """Phase 12c: the aiPI ions of tests/test_pi.py in the rocksalt
+    primitive cell; 1M points, and autocp card against CPU (Poincare-Hopf
+    0, the same CP list)."""
+    import tempfile
+
+    import numpy as np
+
+    from critic2_tpu_torch import System
+    from critic2_tpu_torch.analysis.autocp import autocp
+    from critic2_tpu_torch.convert import (cplist_to_arrays,
+                                           crystal_from_arrays)
+    from critic2_tpu_torch.fields.pi import PiField
+
+    a = 8.0
+    m = 0.5 * a * (np.ones((3, 3)) - np.eye(3))
+    c = crystal_from_arrays(m, [[0.0] * 3, [0.5] * 3], [0, 1],
+                            [("He", 2), ("Li", 3)])
+    with tempfile.TemporaryDirectory() as d:
+        ions = {}
+        for name, text in (("He", ION_HE), ("Li", ION_LI)):
+            ions[name] = os.path.join(d, f"{name}.ion")
+            with open(ions[name], "w") as fh:
+                fh.write(text)
+        pd = PiField.from_files(c, ions, device=dev)
+        pc = PiField.from_files(c, ions, device="cpu")
+        x = np.random.default_rng(84).uniform(0, 1, (npts, 3)) @ m.T
+        rec, _ = eval_leg(f"aiPI ({pd.atpos.shape[0]} ion images)",
+                          PiShim(pd), PiShim(pc), x, dev, card)
+        cps = {}
+        for tag, dv in (("card", dev), ("cpu", "cpu")):
+            s = System.from_structure(c, device=dv)
+            s.load_field_pi(ions)
+            cps[tag], rec[f"autocp_{tag}_s"] = wall_s(lambda: autocp(s))
+    cpl = cps["card"]
+    ph = cpl.poincare_hopf()
+    check(ph == 0, f"aiPI autocp Poincare-Hopf {ph}")
+    check(tuple(cpl.counts()) == tuple(cps["cpu"].counts()),
+          f"aiPI autocp counts {cpl.counts()} against the CPU's "
+          f"{cps['cpu'].counts()}")
+    dcp = match_cps(c, cplist_to_arrays(cpl), cplist_to_arrays(cps["cpu"]),
+                    1e-8)
+    rec.update(counts=list(cpl.counts()), ph=ph, cp_dmax_bohr=dcp)
+    log(f"formats: aiPI autocp counts {cpl.counts()}, Poincare-Hopf 0, the "
+        f"CPU's list within {dcp:.3e} bohr; {rec['autocp_card_s']:.3f} s "
+        f"on the card, {rec['autocp_cpu_s']:.3f} s on the CPU")
+    return rec
+
+
+def dftb_files(d, rng, isreal):
+    """detailed.xml, eigenvec.bin and wfc.hsd of the test_dftb.py basis
+    (H, one s orbital, cutoff 5.5) on a 4x4x4 supercell of its 4 bohr
+    cell: 64 atoms, 64 orbitals, 32 states occupied twice; Gamma with
+    real eigenvectors, or two k-points with complex ones."""
+    import numpy as np
+
+    with open(os.path.join(d, "wfc.hsd"), "w") as fh:
+        fh.write("H {\n  AtomicNumber = 1\n  Orbital {\n"
+                 "    AngularMomentum = 0\n    Occupation = 1.0\n"
+                 "    Cutoff = 5.5\n    Exponents { 0.9 2.1 }\n"
+                 "    Coefficients {\n      0.7 0.2\n      0.4 -0.1\n"
+                 "    }\n  }\n}\n")
+    kpts = ([(0.0, 0.0, 0.0, 1.0)] if isreal
+            else [(0.0, 0.0, 0.0, 0.5), (0.5, 0.25, 0.0, 0.5)])
+    occ = " ".join(["2.0"] * 32 + ["0.0"] * 32)
+    blocks = "\n".join(f" <k{i + 1}>\n  {occ}\n </k{i + 1}>"
+                       for i in range(len(kpts)))
+    with open(os.path.join(d, "detailed.xml"), "w") as fh:
+        fh.write(f"<detailedout>\n <real>{'yes' if isreal else 'no'}</real>\n"
+                 f" <nrofkpoints>{len(kpts)}</nrofkpoints>\n"
+                 " <nrofspins>1</nrofspins>\n <nrofstates>64</nrofstates>\n"
+                 " <nroforbitals>64</nroforbitals>\n <kpointsandweights>\n"
+                 + "\n".join("  %.10f %.10f %.10f %.10f" % k for k in kpts)
+                 + f"\n </kpointsandweights>\n <occupations>\n{blocks}\n"
+                 " </occupations>\n</detailedout>\n")
+    recs = [frec(np.int32(1).tobytes())]
+    for _ in kpts:
+        if isreal:
+            v = np.linalg.qr(rng.normal(size=(64, 64)))[0]
+            recs += [frec(v[:, j].astype("<f8").tobytes()) for j in range(64)]
+        else:
+            v = random_unitaries(rng, 1, 64)[0]
+            recs += [frec(v[:, j].astype("<c16").tobytes())
+                     for j in range(64)]
+    with open(os.path.join(d, "eigenvec.bin"), "wb") as fh:
+        fh.write(b"".join(recs))
+    return [os.path.join(d, f) for f in ("detailed.xml", "eigenvec.bin",
+                                         "wfc.hsd")]
+
+
+def dftb_leg(dev, card, npts):
+    """Phase 12d: DFTB+ on a 64-atom cell, Gamma-real and complex-k, at
+    131,072 points; gkin and elf of expressions card against CPU."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch import System
+    from critic2_tpu_torch.convert import crystal_from_arrays
+
+    g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3) / 4.0
+    c = crystal_from_arrays(np.eye(3) * 16.0, g, np.zeros(64, int),
+                            [("H", 1)])
+    rng = np.random.default_rng(85)
+    out = {}
+    x = rng.uniform(0, 16.0, (npts, 3))
+    sub = x[:DFTB_SUB]
+    for kind in ("real", "complex"):
+        with tempfile.TemporaryDirectory() as d:
+            files = dftb_files(d, rng, kind == "real")
+            sd = System.from_structure(c, device=dev)
+            sd.load_field(files[0], file2=files[1], file3=files[2])
+            sc = System.from_structure(c, device="cpu")
+            sc.load_field(files[0], file2=files[1], file3=files[2])
+        xd = torch.as_tensor(x, dtype=torch.float64, device=dev)
+        sd.ref.dftb.eval(xd[:64], nder=2)           # warm: tables, jvp
+        res, w = wall_s(lambda: sd.ref.dftb.eval(xd, nder=2, block=16384))
+        check(all(bool(torch.isfinite(t).all()) for t in res),
+              f"DFTB+ {kind}: non-finite values")
+        ref = sc.ref.dftb.eval(sub, nder=2, block=DFTB_SUB)
+        errs = [rel_err(a[:DFTB_SUB].cpu(), b) for a, b in zip(res, ref)]
+        check(errs[0] <= 1e-12 and max(errs[1:]) <= 1e-10,
+              f"DFTB+ {kind}: card against CPU {errs}")
+        ex = {}
+        for e in ("gkin(1)", "elf(1)"):
+            ex[e] = rel_err(sd.eval_expr(e, sub).cpu(), sc.eval_expr(e, sub))
+            check(ex[e] <= 1e-10, f"DFTB+ {kind} {e}: card against CPU "
+                  f"{ex[e]:.3e}")
+        out[kind] = {"ms_per_65536": 1e3 * w * EVAL_CHUNK / npts,
+                     "points": npts, "err_rho": errs[0],
+                     "err_derivs": max(errs[1:]), "expr_err": ex}
+        log(f"formats: DFTB+ {kind} (64 atoms) nder=2 "
+            f"{out[kind]['ms_per_65536']:.3f} ms per 65,536 points "
+            f"({npts} points, {w:.3f} s) on {card}; card = CPU rho "
+            f"{errs[0]:.3e}, derivatives {max(errs[1:]):.3e} on {DFTB_SUB} "
+            f"points; gkin {ex['gkin(1)']:.3e}, elf {ex['elf(1)']:.3e}")
+        del sd, sc, res
+    return out
+
+
+def formats_phase(dev, card, npts=EVAL_POINTS, dftb_npts=DFTB_POINTS):
+    """Phase 12: the remaining field formats."""
+    out = {}
+    for name, fn in (("pwc", lambda: pwc_leg(dev, card)),
+                     ("lapw", lambda: lapw_leg(dev, card, npts)),
+                     ("pi", lambda: pi_leg(dev, card, npts)),
+                     ("dftb", lambda: dftb_leg(dev, card, dftb_npts))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name + "_s"] = time.perf_counter() - t0
+        log(f"formats: {name} leg {out[name + '_s']:.1f} s")
+    out["launches"] = out["pwc"]["launches"]
+    log(json.dumps({"formats": out}, default=float))
+    return out
+
+
 def late_launch_counts(sl, q, wf):
     """Kernel launches of one BS23 attempt on the qtree and wavefunction
     traces; run last, since the profiler slows every later launch."""
@@ -2452,6 +3260,9 @@ def main() -> int:
     ex = expressions_phase(sl, wf, card.splitlines()[0])
     log(f"expressions phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    fm = formats_phase(dev, card.splitlines()[0])
+    log(f"formats phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     path_phase(sl, grid_out, args.profile)
     log(f"gradient-path and FFT phase: {time.perf_counter() - t0:.1f} s")
     late_launch_counts(sl, q, wf)
@@ -2470,6 +3281,7 @@ def main() -> int:
             "launches_multipoles": mp["launches"][name],
             "launches_quickstart": qs["launches"][name],
             "launches_expressions": ex["launches"][name],
+            "launches_deloc": fm["launches"][name],
             **m.get("extra", {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

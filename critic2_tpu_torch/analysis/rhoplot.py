@@ -390,15 +390,85 @@ def _write_chgcar(c, data, path):
 def cube_states(system, kind: str, ibnd: int, ik: int | None = None,
                 spin: int = 0, field=None, fileroot: str = "states",
                 write: bool = True):
-    """Wannier/Bloch state cubes (CUBE MLWF/WANNIER/UNK/PSINK) over a
-    pwc-loaded grid field (reference rotate_qe_evc/get_qe_wnr,
-    src/grid3mod@proc.f90:1440-1577). The pwc reader and its Kohn-Sham
-    states wait for fields/qe.py; a grid field without them is refused
-    as the reference refuses it."""
+    """Wannier/Bloch state cubes: the CUBE MLWF/WANNIER/UNK/PSINK
+    dumps over a pwc-loaded grid field (reference machinery
+    rotate_qe_evc/get_qe_wnr, src/grid3mod@proc.f90:1440-1577, exposed
+    through the CUBE command options).
+
+    kind:
+      "mlwf"    - U-rotated Wannier function of band `ibnd` assembled
+                  on the nk1 x nk2 x nk3 supercell (re/im cube pair);
+                  requires an attached wannier90 chk
+      "wannier" - same Bloch sum WITHOUT the U rotation
+      "unk"     - periodic part u_nk of band `ibnd` at k-point `ik` on
+                  the home cell (re/im pair)
+      "psink"   - Bloch state psi_nk = u_nk e^{2 pi i k.x} at k-point
+                  `ik` on the home cell (re/im pair)
+
+    ibnd/ik are 1-based (reference convention). Returns
+    (data_complex, files): the complex state tensor, on the device of
+    the pwc states, and the cube paths written (empty when
+    write=False).
+    """
     f = system.ref if field is None else system.field(field)
     if f.type != "grid" or getattr(f.grid, "qe", None) is None:
         raise ValueError(f"CUBE {kind.upper()} requires a pwc-loaded "
                          "grid field (LOAD file.pwc)")
-    raise NotImplementedError(
-        "the Kohn-Sham states of a pwc grid wait for fields/qe.py, which "
-        "is not ported to the torch package yet")
+    qe = f.grid.qe
+    kind = kind.lower()
+    b0 = int(ibnd) - 1
+    files: list[str] = []
+    c = system.crystal
+
+    if kind in ("mlwf", "wannier"):
+        useu = kind == "mlwf" and qe.iswan
+        if kind == "mlwf" and not qe.iswan:
+            raise ValueError("CUBE MLWF requires wannier90 chk data "
+                             "(LOAD ... WANNIER file.chk)")
+        W = qe.wannier_home(spin, b0, useu=useu)
+        nk1, nk2, nk3 = (int(v) for v in qe.nk)
+        n1, n2, n3 = (int(v) for v in qe.n)
+        # supercell value at x + R is the home-cell value of the image
+        # translated by R: w_0(x + R) = w_{(-R) mod nk}(x)
+        S = torch.empty((nk1 * n1, nk2 * n2, nk3 * n3), dtype=W.dtype,
+                        device=W.device)
+        for r1 in range(nk1):
+            for r2 in range(nk2):
+                for r3 in range(nk3):
+                    ilat = (((-r1) % nk1) * nk2 + ((-r2) % nk2)) * nk3 \
+                        + ((-r3) % nk3)
+                    S[r1 * n1:(r1 + 1) * n1, r2 * n2:(r2 + 1) * n2,
+                      r3 * n3:(r3 + 1) * n3] = W[ilat]
+        if write:
+            from ..crystal.transform import newcell
+
+            cs = newcell(c, np.diag([nk1, nk2, nk3]))
+            for part, arr in (("re", S.real), ("im", S.imag)):
+                path = f"{fileroot}-{kind}-{ibnd}-{spin + 1}-{part}.cube"
+                write_grid_file(cs, arr, path, what=f"{kind} {ibnd}")
+                files.append(path)
+        return S, files
+
+    if kind not in ("unk", "psink"):
+        raise ValueError(f"unknown CUBE state kind: {kind}")
+    if ik is None:
+        raise ValueError(f"CUBE {kind.upper()} needs a k-point index")
+    k0 = int(ik) - 1
+    u = qe.bloch_on_grid(spin, b0, useu=False)[k0]
+    if kind == "psink":
+        n1, n2, n3 = (int(v) for v in qe.n)
+        dev = u.device
+        fx = torch.arange(n1, dtype=FDTYPE, device=dev) / n1
+        fy = torch.arange(n2, dtype=FDTYPE, device=dev) / n2
+        fz = torch.arange(n3, dtype=FDTYPE, device=dev) / n3
+        kpt = np.asarray(qe.kpt)[k0]
+        u = u * torch.exp(2j * torch.pi * (
+            float(kpt[0]) * fx[:, None, None] + float(kpt[1]) * fy[None, :, None]
+            + float(kpt[2]) * fz[None, None, :]))
+    if write:
+        for part, arr in (("re", u.real), ("im", u.imag)):
+            path = (f"{fileroot}-{kind}-{ibnd}-{ik}-{spin + 1}"
+                    f"-{part}.cube")
+            write_grid_file(c, arr, path, what=f"{kind} {ibnd} {ik}")
+            files.append(path)
+    return u, files

@@ -349,9 +349,30 @@ class _Ctx:
     def _chem_dftb(self, name, fid):
         """Kinetic-energy-density functions for DFTB+ fields (the
         reference sets avail_gkin for dftb, src/fieldmod@proc.f90:798)."""
-        raise NotImplementedError(
-            f"{name} of a DFTB+ field waits for fields/dftb.py, which is "
-            "not ported to the torch package yet")
+        fld = self.system.field(self.system.resolve_fid(fid))
+        c = fld.crystal
+        m_c2x = torch.as_tensor(np.asarray(c.m_c2x), dtype=FDTYPE,
+                                device=self.xT.device)
+        m_x2c = torch.as_tensor(np.asarray(c.m_x2c), dtype=FDTYPE,
+                                device=self.xT.device)
+        wx = m_c2x @ self.xT
+        wx = wx - torch.floor(wx)
+        wc = (m_x2c @ wx).T
+        _, _, _, gkin = fld.dftb.eval(wc, nder=1)
+        if name == "gkin":
+            return gkin
+        f, gf, h6 = self.res(fid, 2)
+        if name == "kkin":
+            return gkin - 0.25 * (h6[0] + h6[1] + h6[2])
+        if name == "elf":
+            f0 = torch.clamp(f, min=1e-30)
+            gmod2 = (gf * gf).sum(0)
+            ds = gkin - gmod2 / (8.0 * f0)
+            q = ds / (CTF * f0 ** (5.0 / 3.0))
+            return torch.where(f < 1e-30, 0.0, 1.0 / (1.0 + q * q))
+        q = CTF * torch.clamp(f, min=0.0) ** (5.0 / 3.0) / \
+            torch.clamp(gkin, min=1e-30)
+        return q / (1.0 + q)
 
     def _chem_wfn(self, name, fid):
         fld = self.system.field(self.system.resolve_fid(fid))

@@ -6,7 +6,8 @@ a grid field as its (n1,n2,n3) array; a critical-point list as one array
 per attribute (the bond/ring-path graph included); a Bader result, an
 integration result's rows and a qtree result likewise; a molecular
 wavefunction as its primitive arrays (atpos, atz, icenter, itype, e,
-cmo, occ, the EDF arrays, wfntyp, nalpha). From them
+cmo, occ, the EDF arrays, wfntyp, nalpha); a QE pwc state set (with its
+wannier90 data) and a delocalization result likewise. From them
 the port builds its own Crystal, Field and System, so both packages
 compute on identical inputs. Nothing here imports the JAX package: the
 caller reads the arrays off its objects (``crystal_to_arrays`` works on
@@ -160,3 +161,68 @@ def qtree_to_arrays(res) -> dict:
             "volumes": np.array(res.volumes, dtype=float),
             "nlevels": int(res.nlevels), "ntraced": int(res.ntraced),
             "nrefined": int(res.nrefined)}
+
+
+_QE_ARRAYS = ("nk", "at", "kpt", "wk", "ek", "occ", "ngk", "igk_k", "nl",
+              "nlm", "evc", "nbndw", "center", "spread", "u")
+
+
+def _host(a):
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy().copy()
+    return np.array(a)
+
+
+def qedata_to_arrays(qe) -> dict:
+    """The numpy form of a QEData of either package: the pwc arrays (the
+    plane-wave coefficients `evc` included) and the wannier90 U
+    matrices, centres and spreads (None where no chk was read)."""
+    out = {k: _host(getattr(qe, k)) for k in _QE_ARRAYS}
+    out.update(nks=int(qe.nks), nbnd=int(qe.nbnd), nspin=int(qe.nspin),
+               gamma_only=bool(qe.gamma_only),
+               n=tuple(int(v) for v in qe.n), fpwc=str(qe.fpwc),
+               iswan=bool(qe.iswan))
+    return out
+
+
+def qedata_from_arrays(nks, nk, nbnd, nspin, gamma_only, n, at, kpt, wk,
+                       ek, occ, ngk, igk_k, nl, nlm, evc, fpwc="",
+                       iswan=False, nbndw=None, center=None, spread=None,
+                       u=None, device=None):
+    """The port's QEData from the numpy form, its coefficients on
+    `device` (cuda by default)."""
+    from .fields.qe import QEData
+
+    return QEData(
+        nks=int(nks), nk=np.array(nk, dtype=np.int64), nbnd=int(nbnd),
+        nspin=int(nspin), gamma_only=bool(gamma_only),
+        n=tuple(int(v) for v in n), at=np.array(at, dtype=float),
+        kpt=np.array(kpt, dtype=float), wk=np.array(wk, dtype=float),
+        ek=np.array(ek, dtype=float), occ=np.array(occ, dtype=float),
+        ngk=np.array(ngk, dtype=np.int64),
+        igk_k=np.array(igk_k, dtype=np.int64),
+        nl=np.array(nl, dtype=np.int64),
+        nlm=None if nlm is None else np.array(nlm, dtype=np.int64),
+        evc=torch.as_tensor(np.asarray(evc, dtype=np.complex128),
+                            device=resolve_device(device)),
+        fpwc=str(fpwc), iswan=bool(iswan),
+        nbndw=(np.zeros(2, np.int64) if nbndw is None
+               else np.array(nbndw, dtype=np.int64)),
+        center=None if center is None else np.array(center, dtype=float),
+        spread=None if spread is None else np.array(spread, dtype=float),
+        u=None if u is None else np.array(u, dtype=np.complex128))
+
+
+def deloc_to_arrays(res) -> dict:
+    """The numpy form of a DelocResult of either package."""
+    return {"nspin": int(res.nspin), "fspin": float(res.fspin),
+            "nk": np.array(res.nk, dtype=np.int64),
+            "nbndw": np.array(res.nbndw, dtype=np.int64),
+            "sij": [np.array(s) for s in res.sij],
+            "fa": np.array(res.fa, dtype=float),
+            "xattr": np.array(res.xattr, dtype=float),
+            "rvec": np.array(res.rvec, dtype=np.int64),
+            "li": np.array(res.li(), dtype=float),
+            "population": np.array(res.population(), dtype=float)}

@@ -3,11 +3,10 @@
 Role of the reference fieldmod (src/fieldmod.f90): a field is a crystal
 plus one evaluation backend, evaluated through a single dispatch `grd`
 that returns value, gradient, Hessian and derived scalars for a whole
-batch of points (reference grd, src/fieldmod@proc.f90:613-845). The port
-carries the grid (every grid format but pwc), promolecular,
-molecular-wavefunction (wfn) and ghost (expression) types; the others
-(wien, elk, pi, dftb) raise NotImplementedError naming the module they
-wait for.
+batch of points (reference grd, src/fieldmod@proc.f90:613-845): grid
+(every grid format, pwc with its Kohn-Sham states included),
+promolecular, molecular-wavefunction (wfn), ghost (expression), WIEN2k
+and elk LAPW (wien, elk), aiPI (pi) and DFTB+ (dftb) types.
 
 Pipeline per batch (mirrors the reference):
   1. Cartesian -> fractional, wrap to the main cell (periodic)
@@ -89,13 +88,34 @@ def _ghost_derivs(expr_fn, xT, nder):
     return f.detach(), gf.detach(), h6.detach()
 
 
+def _mt_derivs(mt, xT, nder):
+    """Value, gradient (3, N) and Hessian rows (6, N) in the package's
+    order [xx, yy, zz, xy, xz, yz] of a WIEN2k or elk evaluator at
+    Cartesian points xT (3, N); the evaluator's own rows come as [xx,
+    xy, xz, yy, yz, zz]. Zeros stand for the derivatives nder leaves
+    out."""
+    from .wien import SYM6_FROM_MODULE
+
+    f, gf, h6 = mt.grd(xT.T, nder=nder)
+    N = xT.shape[1]
+    if gf is None:
+        gf = torch.zeros((3, N), dtype=FDTYPE, device=xT.device)
+    h6 = (torch.zeros((6, N), dtype=FDTYPE, device=xT.device)
+          if h6 is None else h6[SYM6_FROM_MODULE])
+    return f, gf, h6
+
+
 @dataclass
 class Field:
     crystal: object
-    type: str       # 'grid' | 'promol' | 'wfn' | 'ghost'
+    type: str       # 'grid' | 'promol' | 'wfn' | 'ghost' | 'wien' | 'elk'
+    #                 | 'pi' | 'dftb'
     grid: Grid3 | None = None
     promol: PromolEnv | None = None
     wfn: object | None = None       # fields/wfn.Wavefunction
+    mt: object | None = None        # fields/wien.WienField, elk.ElkField
+    pi: object | None = None        # fields/pi.PiField
+    dftb: object | None = None      # fields/dftb.DftbField
     wdevice: torch.device | None = None   # where a wfn/ghost field evaluates
     expr: object = None             # compiled ghost expression
     name: str = ""
@@ -146,19 +166,53 @@ class Field:
                    "siesta", "pwc", "abinit"):
             omega = crystal.volume if fmt == "vasp" else None
             g = Grid3.from_file(path, fmt=fmt, omega=omega, device=device)
+            if fmt == "pwc":
+                chk = kw.pop("file2", None)
+                chkdn = kw.pop("file3", None)
+                if chk:
+                    g.read_wannier_chk(chk, chkdn)
             return cls.from_grid(crystal, g, name=name or path, **kw)
         base = os.path.basename(path).upper()
-        module = None
         if base.startswith("STATE") and base.endswith(".OUT"):
-            module = "fields/elk.py"
-        elif base == "DETAILED.XML" or fmt == "dftb":
-            module = "fields/dftb.py"
-        elif base.endswith((".CLMSUM", ".CLMUP", ".CLMDN")) or fmt == "wien":
-            module = "fields/wien.py"
-        if module:
-            raise NotImplementedError(
-                f"the field of {path} waits for {module}, whose evaluator "
-                "is not ported to the torch package yet")
+            from .elk import ElkField
+
+            geom = kw.pop("file2", None)
+            if geom is None:
+                geom = os.path.join(os.path.dirname(path), "GEOMETRY.OUT")
+                if not os.path.exists(geom):
+                    raise FileNotFoundError(
+                        f"elk field {path} needs GEOMETRY.OUT (pass file2=)")
+            return cls(crystal=crystal, type="elk",
+                       mt=ElkField.from_files(path, geom, device=device),
+                       name=name or path, **kw)
+        if base == "DETAILED.XML" or fmt == "dftb":
+            from .dftb import DftbField
+
+            binf = kw.pop("file2", None)
+            hsdf = kw.pop("file3", None)
+            if binf is None:
+                binf = os.path.join(os.path.dirname(path), "eigenvec.bin")
+            if hsdf is None:
+                raise ValueError("dftb field needs the wfc .hsd basis "
+                                 "file (LOAD detailed.xml eigenvec.bin "
+                                 "wfc.hsd)")
+            return cls(crystal=crystal, type="dftb",
+                       dftb=DftbField.from_files(crystal, path, binf, hsdf,
+                                                 device=device),
+                       name=name or path, **kw)
+        if base.endswith((".CLMSUM", ".CLMUP", ".CLMDN")) or fmt == "wien":
+            from .wien import WienField
+
+            struct = kw.pop("file2", None)
+            if struct is None:
+                struct = os.path.splitext(path)[0] + ".struct"
+                if not os.path.exists(struct):
+                    raise FileNotFoundError(
+                        f"wien field {path} needs a .struct file "
+                        f"(tried {struct}; pass file2=)")
+            return cls(crystal=crystal, type="wien",
+                       mt=WienField.from_files(path, struct, device=device),
+                       name=name or path, **kw)
         return cls.from_wavefunction(crystal, path, name=name,
                                      device=device, **kw)
 
@@ -191,6 +245,10 @@ class Field:
             return self.grid.f.device
         if self.type in ("wfn", "ghost"):
             return self.wdevice
+        if self.type in ("wien", "elk"):
+            return self.mt.device
+        if self.type in ("pi", "dftb"):
+            return getattr(self, self.type).device
         return self.promol.device
 
     # ------------------------------------------------------------------
@@ -267,10 +325,18 @@ class Field:
             f, gfT, h6 = _ghost_derivs(self.expr, v.T, nder)
             gf = gfT.T
             hf = sym6_to_mat(h6)
+        elif self.type in ("wien", "elk"):
+            from ..ops.interp import sym6_to_mat
+
+            f, gfT, h6 = _mt_derivs(self.mt, wc.T, nder)
+            gf = gfT.T
+            hf = sym6_to_mat(h6)
+        elif self.type == "pi":
+            f, gf, hf = self.pi.eval(wc, nder=nder)
+        elif self.type == "dftb":
+            f, gf, hf, _ = self.dftb.eval(wc, nder=nder)
         else:
-            raise NotImplementedError(
-                f"{self.type} fields are not ported to the torch package "
-                "yet")
+            raise ValueError(f"unknown field type {self.type}")
 
         fval = f
         env = self.coreenv
@@ -312,10 +378,6 @@ class Field:
         return self._evalfns[key]
 
     def _build_eval_fn(self, nder: int, clamp_nuclei: bool):
-        if self.type not in ("grid", "promol", "wfn", "ghost"):
-            raise NotImplementedError(
-                f"eval_fn for {self.type} fields is not ported to the torch "
-                "package yet")
         c = self.crystal
         m_c2x = np.asarray(c.m_c2x)
         m_x2c = np.asarray(c.m_x2c)
@@ -335,9 +397,10 @@ class Field:
         elif ftype == "wfn":
             dev, dt = self.device, FDTYPE
             wfn = self.wfn
-        elif ftype == "ghost":
+        elif ftype in ("ghost", "wien", "elk", "pi", "dftb"):
             dev, dt = self.device, FDTYPE
-            expr_fn = self.expr
+            expr_fn, mtfield = self.expr, self.mt
+            pifield, dftbfield = self.pi, self.dftb
         else:
             dev, dt = promol.atpos.device, promol.atpos.dtype
 
@@ -365,6 +428,14 @@ class Field:
                 f, gf, h6 = wfn.rho_eval_dense(xT, nder=nder)
             elif ftype == "ghost":
                 f, gf, h6 = _ghost_derivs(expr_fn, xT, nder)
+            elif ftype in ("wien", "elk"):
+                f, gf, h6 = _mt_derivs(mtfield, wc, nder)
+            elif ftype in ("pi", "dftb"):
+                out = (pifield.eval(wc.T, nder=nder) if ftype == "pi"
+                       else dftbfield.eval(wc.T, nder=nder))
+                f, gf, h = out[0], out[1].T, out[2]
+                h6 = torch.stack([h[:, 0, 0], h[:, 1, 1], h[:, 2, 2],
+                                  h[:, 0, 1], h[:, 0, 2], h[:, 1, 2]])
             else:
                 f, gf, h6 = promolecular_soa(wc, promol.atpos, promol.atspc,
                                              promol.tab, nder=nder)

@@ -11,8 +11,8 @@ Host side: file parsing (NumPy), the same parsers as the JAX package's,
 so both read the same doubles from the same file. Every reader hands the
 device a C-contiguous float64 tensor (the Fortran-ordered formats are
 copied to C order first: the kernels and the interpolators take the
-layout as given). The pwc format waits for fields/qe.py's Kohn-Sham
-state reader (queue 1 item 4 of the roadmap).
+layout as given). A pwc grid is the density built on the device from
+the file's Kohn-Sham states (fields/qe.py), which it keeps as `qe`.
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ DEFAULT_MODE = "tricubic"  # reference mode_default (src/grid3mod.f90:88)
 class Grid3:
     f: torch.Tensor                     # (n1,n2,n3) device tensor
     mode: str = DEFAULT_MODE
+    qe: object = None                   # QEData (pwc KS states + Wannier)
     # lazy coefficient grids of the trispline and tristar modes
     _spl: torch.Tensor = field(default=None, repr=False, compare=False)
     _star_c2: torch.Tensor = field(default=None, repr=False, compare=False)
@@ -163,11 +164,21 @@ class Grid3:
 
     @classmethod
     def read_pwc(cls, path: str, *, device=None) -> "Grid3":
-        """QE pw2critic.x pwc file (reference read_pwc,
-        src/grid3mod@proc.f90:734-852)."""
-        raise NotImplementedError(
-            "pwc grids wait for the Kohn-Sham state reader of "
-            "fields/qe.py, which is not ported to the torch package yet")
+        """QE pw2critic.x pwc file: electron density grid + KS states for
+        Wannier delocalization indices (reference read_pwc,
+        src/grid3mod@proc.f90:734-852), both on `device`."""
+        from .qe import read_pwc as _read
+
+        qe, rho = _read(path, device=device)
+        return cls(rho.contiguous(), qe=qe)
+
+    def read_wannier_chk(self, fileup: str, filedn: str | None = None):
+        """Attach wannier90 chk data (src/grid3mod@proc.f90:899-1038)."""
+        from .qe import read_wannier_chk as _read
+
+        if self.qe is None:
+            raise ValueError("wannier chk requires a pwc-loaded grid")
+        _read(self.qe, fileup, filedn)
 
     @classmethod
     def read_cube(cls, path: str, *, device=None) -> "Grid3":

@@ -260,6 +260,18 @@ class System:
             raise ValueError(f"unknown LOAD AS kind {kind}")
         return self.load_field(f, fid=fid, name=name)
 
+    def load_field_pi(self, ion_files: dict, fid=None, name=None):
+        """aiPI field from {species name or index: .ion file}
+        (reference LOAD PI, src/fieldseedmod@proc.f90:86-87,240-255), on
+        the system's device."""
+        from .fields.field import Field
+        from .fields.pi import PiField
+
+        pf = PiField.from_files(self.crystal, ion_files, device=self.device)
+        f = Field(crystal=self.crystal, type="pi", pi=pf,
+                  name=name or "<pi>")
+        return self.load_field(f, fid=fid, name=name)
+
     def _promolecular_grid_field(self, shape, zpsp=None, fragment=None,
                                  name=""):
         from .analysis.integration import _rasterize_env

@@ -252,14 +252,34 @@ def test_detect_grid_format_matches_jax(name):
 
 
 def test_unported_fields_name_their_module(tmp_path):
+    """The formats that once waited for their module (fields/qe.py,
+    elk.py, dftb.py, wien.py) are dispatched to it by file name: each
+    file of the JAX package's own test writers loads into its type."""
+    import test_deloc
+    import test_dftb
+    import test_elk
+    import test_wien
+
     c = crystal_from_arrays(**crystal_to_arrays(_crystal()))
-    for name, module in (("x.pwc", "fields/qe.py"),
-                         ("STATE.OUT", "fields/elk.py"),
-                         ("detailed.xml", "fields/dftb.py"),
-                         ("x.clmsum", "fields/wien.py")):
-        p = tmp_path / name
-        p.write_bytes(b"\0" * 16)
-        with pytest.raises(NotImplementedError, match=module):
-            Field.from_file(c, str(p), device=CPU)
-    with pytest.raises(NotImplementedError, match="fields/qe.py"):
-        Grid3.read_pwc(str(tmp_path / "x.pwc"), device=CPU)
+    test_deloc.write_pwc(str(tmp_path / "x.pwc"), np.eye(3) * 6.0,
+                         (2, 1, 1), 2, (8, 8, 8))
+    test_elk._write_geometry(tmp_path / "GEOMETRY.OUT")
+    test_elk._write_state(tmp_path / "STATE.OUT")
+    test_wien._write_struct(tmp_path / "x.struct")
+    test_wien._write_clmsum(tmp_path / "x.clmsum")
+    test_dftb.write_hsd(tmp_path / "wfc.hsd")
+    test_dftb.write_xml(tmp_path / "detailed.xml", [(np.zeros(3), 1.0)],
+                        np.full((1, 1, 1), 2.0), True)
+    test_dftb.write_bin(tmp_path / "eigenvec.bin", [np.array([1.0])], True)
+    h = crystal_from_arrays(np.eye(3) * 4.0, [[0.0, 0.0, 0.0]], [0],
+                            [("H", 1)])
+    for name, typ, crys, kw in (
+            ("x.pwc", "grid", c, {}), ("STATE.OUT", "elk", c, {}),
+            ("detailed.xml", "dftb", h,
+             {"file3": str(tmp_path / "wfc.hsd")}),
+            ("x.clmsum", "wien", c, {})):
+        f = Field.from_file(crys, str(tmp_path / name), device=CPU, **kw)
+        assert f.type == typ and f.device.type == "cpu"
+        assert torch.isfinite(f.grd(np.array([[0.3, 0.2, 0.1]])).f).all()
+    g = Grid3.read_pwc(str(tmp_path / "x.pwc"), device=CPU)
+    assert g.qe is not None and g.n == (8, 8, 8)

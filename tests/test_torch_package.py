@@ -68,7 +68,7 @@ def _imported_roots(path):
 
 def test_no_jax_or_jax_package_import_anywhere():
     mods = list(_modules())
-    assert len(mods) >= 66
+    assert len(mods) >= 69
     assert not [p for p in mods if "_build" in p]
     bad = [(os.path.relpath(p, ROOT), r) for p in mods
            for r in _imported_roots(p) if r in FORBIDDEN]
@@ -107,6 +107,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import critic2_tpu_torch.fields.elk\n"
             "import critic2_tpu_torch.fields.qe\n"
             "import critic2_tpu_torch.fields.wien\n"
+            "import critic2_tpu_torch.fields.pi\n"
+            "import critic2_tpu_torch.fields.dftb\n"
+            "import critic2_tpu_torch.analysis.deloc\n"
             "import critic2_tpu_torch.io.abinit\n"
             "import critic2_tpu_torch.io.cif\n"
             "import critic2_tpu_torch.io.writers\n"
@@ -211,6 +214,18 @@ def _grid_system(mode=None):
     return s
 
 
+def _pwc_path():
+    """A synthetic pwc file (the writer of tests/test_deloc.py) on a 4^3
+    grid of the 6 bohr cell of _crystal()."""
+    import tempfile
+
+    from test_deloc import write_pwc
+
+    p = os.path.join(tempfile.mkdtemp(), "x.pwc")
+    write_pwc(p, np.eye(3) * 6.0, (2, 1, 1), 2, (4, 4, 4))
+    return p
+
+
 def _fragment_xyz():
     """An xyz file holding the Na atom of _crystal(), at the origin."""
     import tempfile
@@ -241,8 +256,7 @@ def _fragment_xyz():
     (None,
      lambda: _grid_system().load_field_as("promolecular", shape=(4, 4, 4),
                                           fragment=_fragment_xyz())),
-    ("fields/qe.py", lambda: Field.from_file(_crystal(), "x.pwc",
-                                             device="cpu")),
+    (None, lambda: Field.from_file(_crystal(), _pwc_path(), device="cpu")),
 ], ids=["mesh-seed", "molmotif", "spg_name", "wyckoffs", "wfn-autocp",
         "wfn-makegraph", "ode-escape", "sphere_integral-expr",
         "basin_integral-expr", "intgrid-discard", "fragment-file",
@@ -252,8 +266,9 @@ def test_unported_branches_name_what_they_wait_for(what, call):
     they wait for; a case whose module is now ported (what=None: mesh
     seeds, autocp and makegraph on a wavefunction field, the tracer's
     escape sphere, molmotif, space-group names, Wyckoff letters, a
-    fragment given as an xyz file, expr= of the bisection integrals and
-    intgrid's discard=) runs instead."""
+    fragment given as an xyz file, expr= of the bisection integrals,
+    intgrid's discard= and a pwc grid with its Kohn-Sham states) runs
+    instead."""
     if what is None:
         call()
         return
@@ -411,6 +426,41 @@ def test_expression_slice_entry_points_default_to_cuda(monkeypatch, entry):
         calls[entry]()
 
 
+@pytest.mark.parametrize("entry", [
+    "read_pwc", "pwc-field", "deloc_wannier", "WienField", "ElkField",
+    "PiField", "DftbField", "load_field_pi"])
+def test_formats_slice_entry_points_default_to_cuda(monkeypatch, entry):
+    """The field formats' entry points (the pwc reader and deloc, the
+    WIEN2k, elk, aiPI and DFTB+ evaluators, LOAD PI) resolve their
+    device as cuda when none is given, and raise without it, before they
+    read a file."""
+    from critic2_tpu_torch.analysis.deloc import deloc_wannier
+    from critic2_tpu_torch.fields.dftb import DftbField
+    from critic2_tpu_torch.fields.elk import ElkField
+    from critic2_tpu_torch.fields.pi import PiField
+    from critic2_tpu_torch.fields.qe import read_pwc
+    from critic2_tpu_torch.fields.wien import WienField
+
+    c = _crystal()
+    pwc = _pwc_path()
+    qe, rho = read_pwc(pwc, device="cpu")
+    decomp = yt_integrate(c, rho)
+    calls = {
+        "read_pwc": lambda: read_pwc(pwc),
+        "pwc-field": lambda: Field.from_file(c, pwc),
+        "deloc_wannier": lambda: deloc_wannier(c, decomp, qe, useu=False),
+        "WienField": lambda: WienField.from_files("x.clmsum", "x.struct"),
+        "ElkField": lambda: ElkField.from_files("STATE.OUT", "GEOMETRY.OUT"),
+        "PiField": lambda: PiField.from_files(c, {}),
+        "DftbField": lambda: DftbField.from_files(c, "detailed.xml",
+                                                  "eigenvec.bin", "wfc.hsd"),
+        "load_field_pi": lambda: System(crystal=c).load_field_pi({}),
+    }
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
 def test_explicit_cpu_device_and_dtypes():
     s = System.from_structure(_crystal(), device="cpu")
     assert s.device == torch.device("cpu")
@@ -451,6 +501,9 @@ SIGNATURE_ALLOW = {
     # opt-in instrumentation: a dict the port fills with the wall of the
     # traces, the cubature, the boundary and the spheres
     ("critic2_tpu.analysis.qtree", "qtree_integrate"): {"stats"},
+    # the same instrumentation: the wall of the basin supports, the
+    # Wannier stack, the Sij assembly and Fa
+    ("critic2_tpu.analysis.deloc", "deloc_wannier"): {"stats"},
 }
 POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
               inspect.Parameter.POSITIONAL_OR_KEYWORD)

@@ -188,8 +188,18 @@ def test_cube_file_read_by_both(tmp_path, nacl32):
     assert ts.iref == fid and ts.ref.type == "grid"
     assert ts.field("cube") is ts.ref
     np.testing.assert_array_equal(ts.ref.grid.f.numpy(), gj)
-    with pytest.raises(NotImplementedError, match="fields/qe.py"):
-        ts.load_field(str(tmp_path / "rho.pwc"))
+    # a pwc grid now loads beside it, with its Kohn-Sham states
+    from test_deloc import write_pwc
+
+    from critic2_tpu.fields.qe import read_pwc as jax_read_pwc
+
+    pwc = str(tmp_path / "rho.pwc")
+    write_pwc(pwc, np.asarray(c.m_x2c), (2, 1, 1), 2, (8, 8, 8))
+    fp = ts.load_field(pwc)
+    jrho = jax_read_pwc(pwc)[1]
+    assert ts.field(fp).type == "grid" and ts.field(fp).grid.qe.nks == 2
+    got = ts.field(fp).grid.f.numpy()
+    assert np.abs(got - jrho).max() <= 1e-12 * np.abs(jrho).max()
 
 
 def test_convert_round_trips(nacl32):
