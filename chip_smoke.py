@@ -161,6 +161,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      bohr); DFTB+ with the test_dftb.py basis on a 64-atom cell, Gamma
      real and two complex k-points, at 131,072 points (card against CPU
      on 512), gkin and elf of expressions card against CPU (1e-10);
+ 13. the sharded path and the keyword REPL (runs after phase 12, before
+     phase 7's gradient-path parts), on a virtual mesh of 8 shards on the
+     card (make_mesh(8, device=...): space 4 x points 2, every halo and
+     FFT transpose moved between tensors of the one card). Parallel leg:
+     intgrid(method="yt", mesh=) at 256^3 on the slice phase's system
+     (both kernels' launches counted in the call, yt_gs_pass at least 2
+     per shard per outer iteration; each basin's charge within 1e-8 e of
+     the slice phase's, partition of unity 1e-8 e, the same nattr; solver
+     stats, wall, peak memory); its labels equal to one device's except
+     where two basin weights tie within 1e-12; one f64 sweep pair on the
+     first shard's padded slab against the plain version, from f and from
+     the solution (bitwise, the solution a fixpoint with flags 0, the halo
+     planes unchanged); method="jacobi" against "gs" at 64^3 (1e-10 e,
+     yt_pass's launches counted); sharded_eval_fn at 1,048,576 points
+     against interp_soa (f 1e-12, gradient 1e-11, Hessian 1e-10, each
+     relative to the quantity's largest magnitude; wsum 1e-12);
+     ShardedGridOps at 256^3 f64 against ops/fft on the card (1e-10
+     relative; lap, grad components, gradrho, hxx1-3, pot, each timed
+     beside one device) and nci_grids against the single-device FFT
+     Hessian where |lambda_2| > 1e-8; basin_reduce_sharded with the
+     sharded YT weights against index_add_ on one device (1e-10). CLI
+     leg: a .cri script (CRYSTAL the quick-start POSCAR, LOAD the 256^3
+     field as a bincube, AUTO, CPREPORT, YT, INTEGRABLE 1, YT, SUM 1)
+     through Repl(device=...) in-process (no warning, AUTO (4, 12, 10, 2),
+     charges at the printed precision of the slice phase's, both kernels
+     launched by the YT lines) and through `python3 -m
+     critic2_tpu_torch.cli` with CRITIC2_RUNLOG set (exit 0, no warning,
+     the same numbers, one run-log line with wall_s per keyword);
 then one JSON line of kernel records and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -3163,6 +3191,410 @@ def formats_phase(dev, card, npts=EVAL_POINTS, dftb_npts=DFTB_POINTS):
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+# The sharded path and the keyword REPL: a virtual mesh of 8 shards on the
+# card (space 4 x points 2), every halo and transpose moved between tensors
+# of one device.
+N_MESH = 8
+N_JACOBI = 64                  # rasterization of the gs-against-jacobi check
+CLI_STEPS = ("crystal", "load", "auto", "cpreport", "yt", "integrable", "yt",
+             "sum")
+
+
+def sharded_yt_leg(sl, mesh):
+    """intgrid(mesh=) at 256^3 against the slice phase's single-device
+    charges, its labels against one device's, one padded-slab sweep pair
+    against the plain version, Jacobi against Gauss-Seidel at 64^3."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.analysis.integration import (_rasterize_field,
+                                                        intgrid)
+    from critic2_tpu_torch.analysis.yt import yt_integrate
+    from critic2_tpu_torch.ops import yt_pass as ops
+    from critic2_tpu_torch.parallel.mesh import gather, halo_pad
+    from critic2_tpu_torch.parallel.yt_sharded import yt_integrate_sharded
+
+    s = sl["system"]
+    c = s.crystal
+    g = s.ref.grid.f
+    n = N_SLICE
+    dv = c.volume / n ** 3
+    out = {}
+
+    # 1. intgrid(mesh=); the launches counted in this call alone
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    r, out["intgrid_s"] = wall_s(lambda: intgrid(s, method="yt", mesh=mesh))
+    launches = dict(ops.launches)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    sh = r.decomp
+    sv = sh._solver
+    stats = dict(sv.stats)
+    nspace = mesh.shape["space"]
+    log(f"sharded intgrid {n}^3 on {nspace} slabs of {sv.m} planes (halo "
+        f"{sv.H}): {out['intgrid_s']:.3f} s, solver {stats}, launches "
+        f"{launches}, peak device memory {out['peak_gib']:.2f} GiB, nattr "
+        f"{r.nattr_raw}")
+    log(r.table())
+    check(launches["yt_gs_pass"] >= 2 * nspace * stats["outer_iters"],
+          f"sharded intgrid launched {launches['yt_gs_pass']} yt_gs_pass, "
+          f"fewer than 2 per shard per outer iteration")
+    check(r.nattr_raw == sl["nattr"], f"sharded nattr {r.nattr_raw}")
+    q1 = {row.atom: row.pop for row in sl["intres"].rows}
+    check(sorted(row.atom for row in r.rows) == sorted(q1),
+          "sharded basins differ from the slice phase's")
+    dq = max(abs(row.pop - q1[row.atom]) for row in r.rows)
+    q = np.array([row.pop for row in r.rows])
+    punity = abs(q.sum() - float(g.sum()) * dv)
+    log(f"sharded intgrid: per-basin |q - q(one device)| max {dq:.3e} e, "
+        f"partition of unity {punity:.3e} e")
+    check(dq <= 1e-8, f"sharded charges differ by {dq:.3e} e")
+    check(punity <= 1e-8, f"sharded partition of unity {punity:.3e} e")
+    out.update(stats=stats, launches_intgrid=launches, dq_e=dq,
+               punity_e=punity)
+
+    # 2. labels against one device's, except at ties of two weights
+    one = yt_integrate(c, g)
+    t0 = time.perf_counter()
+    lab = sh.labels
+    out["labels_s"] = time.perf_counter() - t0
+    diff = np.flatnonzero(lab.reshape(-1) != one.labels.reshape(-1))
+    # every basin's weight grid (nattr <= 8: one forward solve)
+    w = gather(sh._basin_chunk(0, sh.nattr), dim=1).reshape(sh.nattr, -1)
+    top = torch.topk(w[:, torch.as_tensor(diff, device=w.device)], 2,
+                     dim=0).values
+    ntie = int(((top[0] - top[1]) <= 1e-12).sum())
+    log(f"sharded labels ({out['labels_s']:.3f} s, nboundary "
+        f"{sh.nboundary}, one device {one.nboundary}): {len(diff)} points "
+        f"differ from one device's, {ntie} of them ties within 1e-12")
+    check(ntie == len(diff), f"{len(diff) - ntie} labels differ off a tie")
+    out.update(labels_differ=len(diff), nboundary=sh.nboundary)
+    del one
+
+    # 3. one padded-slab sweep pair (f64, shard 0) against the plain
+    # version: from f, and from the solution (the fixpoint, flags 0)
+    H, m = sv.H, sv.m
+    f3 = torch.stack([torch.ones_like(g), g])
+    op = sv.operand(True)[0]
+    fs = sv._slabs(f3)
+    sol = sv.solve(f3, adjoint=True)
+    for tag, state in (("from f", fs), ("from the solution", sol)):
+        sp = halo_pad(state, H, H, dim=1)[0]
+        fp = sp.clone()
+        fp[:, H:H + m] = fs[0]
+        pairs = []
+        for gs in (ops.yt_gs_pass, ops.yt_gs_pass_plain):
+            def pair():
+                a, c1 = gs(op, sp, fp, offs=sv.offs, backward=False)
+                b, c2 = gs(op, a, fp, offs=sv.offs, backward=True)
+                return b, (int(c1), int(c2))
+            pairs.append(wall_s(pair))
+        (bk, fk), tk = pairs[0]
+        (bp, fpl), tp = pairs[1]
+        same = torch.equal(bk, bp) and fk == fpl
+        halo = torch.equal(bk[:, :H], sp[:, :H]) and \
+            torch.equal(bk[:, H + m:], sp[:, H + m:])
+        log(f"padded slab {tuple(sp.shape)} f64 sweep pair {tag}: kernel "
+            f"{tk * 1e3:.3f} ms, plain {tp * 1e3:.1f} ms, flags {fk} / "
+            f"{fpl}, bitwise equal {same}, halo planes unchanged {halo}")
+        check(same, f"padded-slab pair {tag} differs from its plain version")
+        check(halo, f"padded-slab pair {tag} changed a halo plane")
+        if tag == "from the solution":
+            check(fk == (0, 0) and torch.equal(bk, sp),
+                  "the sharded solution is not a fixpoint of the kernel")
+        out["pair_" + tag.split()[-1] + "_ms"] = [tk * 1e3, tp * 1e3]
+    del sol, fs, f3
+
+    # 4. Jacobi against Gauss-Seidel on a 64^3 rasterization; the
+    # launches of the Jacobi solve alone
+    g64 = _rasterize_field(s.fields[0], (N_JACOBI,) * 3)
+    f64 = torch.stack([torch.ones_like(g64), g64]).reshape(2, -1)
+    qs = {}
+    for method in ("gs", "jacobi"):
+        res = yt_integrate_sharded(mesh, c, g64, result=True, method=method)
+        ops.reset_launches()
+        qs[method], t = wall_s(lambda: res.integrate(f64))
+        out[method + "_64"] = {"s": t, "stats": dict(res._solver.stats),
+                               "launches": dict(ops.launches)}
+        log(f"sharded {method} {N_JACOBI}^3: {t:.3f} s, "
+            f"{res._solver.stats}, launches {dict(ops.launches)}")
+    dj = float(np.abs(qs["gs"] - qs["jacobi"]).max()) \
+        * c.volume / N_JACOBI ** 3
+    log(f"sharded {N_JACOBI}^3: |q(jacobi) - q(gs)| max {dj:.3e} e")
+    check(dj <= 1e-10, f"jacobi against gs {dj:.3e} e")
+    out["dq_jacobi_e"] = dj
+    out["launches"] = {k: launches[k] + out["jacobi_64"]["launches"][k]
+                       for k in launches}
+    for k, v in out["launches"].items():
+        check(v > 0, f"the sharded path launched no {k}")
+    return out, sh, w
+
+
+def sharded_eval_leg(s, mesh):
+    """sharded_eval_fn at 1,048,576 points against interp_soa."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.ops.interp import interp_soa, sym6_to_mat
+    from critic2_tpu_torch.parallel.sharded import sharded_eval_fn
+
+    g = s.ref.grid.f
+    c = s.crystal
+    gen = torch.Generator(device=g.device).manual_seed(13)
+    npts = 1 << 20
+    xf = torch.rand((npts, 3), generator=gen, dtype=g.dtype, device=g.device)
+    m_x2c = torch.as_tensor(c.m_x2c, dtype=g.dtype, device=g.device)
+    m_c2x = torch.as_tensor(c.m_c2x, dtype=g.dtype, device=g.device)
+    pts = xf @ m_x2c.T
+    w = torch.rand(npts, generator=gen, dtype=g.dtype, device=g.device)
+    fn = sharded_eval_fn(mesh, tuple(g.shape), c.m_c2x, c.m_x2c, nder=2)
+    (fv, gf, hf, wsum), t_sh = wall_s(lambda: fn(g, pts, w))
+    (y, yp, ypp), t_one = wall_s(lambda: interp_soa(g, m_c2x @ pts.T))
+    gref = yp.T @ m_c2x
+    href = torch.einsum("ki,nkl,lj->nij", m_c2x, sym6_to_mat(ypp), m_c2x)
+    errs = {k: rel_err(a, b) for k, a, b in (("f", fv, y), ("grad", gf, gref),
+                                             ("hess", hf, href))}
+    dw = abs(float(wsum) - float((w * y).sum())) / abs(float(wsum))
+    log(f"sharded_eval_fn {npts} points: {t_sh:.3f} s (interp_soa on one "
+        f"device {t_one:.3f} s); relative to each quantity's largest "
+        f"magnitude: f {errs['f']:.3e}, grad {errs['grad']:.3e}, Hessian "
+        f"{errs['hess']:.3e}; wsum {dw:.3e}")
+    for k, bar in (("f", 1e-12), ("grad", 1e-11), ("hess", 1e-10)):
+        check(errs[k] <= bar, f"sharded_eval_fn {k} off by {errs[k]:.3e}")
+    check(dw <= 1e-12, f"sharded_eval_fn wsum off by {dw:.3e}")
+    return {"s": t_sh, "interp_soa_s": t_one, "rel_err": errs,
+            "wsum_rel": dw}
+
+
+def grid_ops_leg(s, mesh, sh, w):
+    """ShardedGridOps at 256^3 f64 against ops/fft on the card, nci_grids
+    against the single-device FFT Hessian, basin_reduce_sharded against
+    index_add_ on one device with the sharded YT weights w (nattr, N)."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.ops import fft as fftops
+    from critic2_tpu_torch.ops.eig3 import eigvalsh3s
+    from critic2_tpu_torch.parallel.grid_ops import (ShardedGridOps,
+                                                     basin_reduce_sharded)
+    from critic2_tpu_torch.parallel.mesh import gather
+
+    g = s.ref.grid.f
+    m = s.crystal.m_x2c
+    sops = ShardedGridOps(mesh, tuple(g.shape), m)
+    slabs = sops._slabs(g)
+    out = {}
+    pairs = {
+        "lap": (sops.laplacian, lambda f: fftops.laplacian(f, m)),
+        "gradrho": (sops.gradrho, lambda f: fftops.gradrho(f, m)),
+        "pot": (sops.pot, lambda f: fftops.pot(f, m)),
+    }
+    for ix in range(3):
+        pairs[f"hxx{ix + 1}"] = (lambda f, ix=ix: sops.hxx(f, ix),
+                                 lambda f, ix=ix: fftops.hxx(f, m, ix))
+    for name, (sh_fn, one_fn) in pairs.items():
+        e = rel_err(gather(sh_fn(slabs)), one_fn(g))
+        ms = (cuda_ms(lambda: sh_fn(slabs), 2), cuda_ms(lambda: one_fn(g), 2))
+        out[name] = {"rel_err": e, "ms": ms[0], "one_device_ms": ms[1]}
+        log(f"sharded {name} {N_SLICE}^3 f64: {ms[0]:.3f} ms (one device "
+            f"{ms[1]:.3f} ms), rel {e:.3e}")
+        check(e <= 1e-10, f"sharded {name} off by {e:.3e}")
+    comps = sops.grad_components(slabs)
+    ref = fftops.grad_components(g, m)
+    e = max(rel_err(gather(comps[a]), ref[a]) for a in range(3))
+    ms = (cuda_ms(lambda: sops.grad_components(slabs), 2),
+          cuda_ms(lambda: fftops.grad_components(g, m), 2))
+    out["grad_components"] = {"rel_err": e, "ms": ms[0],
+                              "one_device_ms": ms[1]}
+    log(f"sharded grad_components: {ms[0]:.3f} ms (one device {ms[1]:.3f} "
+        f"ms), rel {e:.3e}")
+    check(e <= 1e-10, f"sharded grad_components off by {e:.3e}")
+    del comps, ref
+
+    # nci_grids against the single-device FFT-Hessian route
+    (rho_s, rdg_s, sl2_s), t_nci = wall_s(lambda: sops.nci_grids(slabs))
+    rho_s, rdg_s, sl2_s = gather(rho_s), gather(rdg_s), gather(sl2_s)
+    gk = fftops.gvectors(g.shape, m, device=g.device)
+    fk = torch.fft.fftn(g)
+    h6 = torch.stack([torch.fft.ifftn(-gk[..., a] * gk[..., b] * fk).real
+                      .reshape(-1) for a, b in ((0, 0), (1, 1), (2, 2),
+                                                (0, 1), (0, 2), (1, 2))])
+    del gk, fk
+    lam2 = eigvalsh3s(h6)[1].reshape(g.shape)
+    del h6
+    rho = g.abs()
+    rdg = fftops.gradrho(g, m) / (2.0 * (3.0 * np.pi ** 2) ** (1 / 3)
+                                  * torch.clamp(rho, min=1e-30) ** (4 / 3))
+    ok = lam2.abs() > 1e-8
+    e_rho = rel_err(rho_s, rho)
+    e_rdg = rel_err(rdg_s, rdg)
+    e_sl2 = rel_err(sl2_s[ok], (torch.sign(lam2) * rho)[ok])
+    log(f"sharded nci_grids {N_SLICE}^3: {t_nci:.3f} s; rho {e_rho:.3e}, "
+        f"rdg {e_rdg:.3e}, sign(l2) rho {e_sl2:.3e} relative on the "
+        f"{float(ok.double().mean()):.4f} of the points with |l2| > 1e-8")
+    check(max(e_rho, e_rdg, e_sl2) <= 1e-10, "sharded nci_grids differ")
+    out["nci"] = {"s": t_nci, "rel_err": [e_rho, e_rdg, e_sl2]}
+    del rho_s, rdg_s, sl2_s, lam2, rho, rdg
+
+    # basin_reduce_sharded with the YT weights, against index_add_
+    wmax, lab = w.max(0)
+    isb = wmax < 1.0 - 1e-12
+    interior = torch.where(isb, -1, lab)
+    bidx = torch.zeros_like(lab)
+    nb = int(isb.sum())
+    bidx[isb] = torch.arange(nb, device=g.device)
+    Wb = w[:, isb]
+    del w
+    ff = torch.stack([torch.ones_like(g).reshape(-1), g.reshape(-1)])
+    q_sh, t_red = wall_s(lambda: basin_reduce_sharded(
+        mesh, interior, bidx, Wb, sh.nattr, ff))
+    q_one = torch.zeros((2, sh.nattr), dtype=g.dtype, device=g.device)
+    q_one.index_add_(1, lab[~isb], ff[:, ~isb])
+    q_one = (q_one + ff[:, isb] @ Wb.T).cpu().numpy()
+    e = float(np.abs(q_sh - q_one).max() / np.abs(q_one).max())
+    dq = float(np.abs(q_sh[1] - sh.integrate(g.reshape(-1))).max()) \
+        * s.crystal.volume / g.numel()
+    log(f"basin_reduce_sharded: {nb} boundary points, {t_red:.3f} s, "
+        f"against index_add_ on one device rel {e:.3e}; its charges "
+        f"{dq:.3e} e off the adjoint solve's")
+    check(e <= 1e-10, f"basin_reduce_sharded off by {e:.3e}")
+    out["basin_reduce"] = {"s": t_red, "nboundary": nb, "rel_err": e,
+                           "dq_vs_solve_e": dq}
+    return out
+
+
+def cli_leg(sl, dev):
+    """The keyword REPL on the quick-start POSCAR and the slice's field as
+    a bincube: in-process on the card, then `python3 -m
+    critic2_tpu_torch.cli` with a run log."""
+    import io
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch.cli import Repl
+    from critic2_tpu_torch.io.writers import write_poscar
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    c0 = nacl_crystal()
+    g0 = sl["system"].ref.grid
+    q_slice = {r.atom: r.pop for r in sl["intres"].rows}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        poscar = os.path.join(tmp, "POSCAR")
+        cube = os.path.join(tmp, "rho.bincube")
+        write_poscar(c0, poscar)
+        g0.write_bincube(cube, crystal=c0)
+        head = f"crystal {poscar}\nload {cube}\nauto\ncpreport\n"
+        body = "yt\nintegrable 1\nyt\n"
+        tail = "sum 1\n"
+        script = os.path.join(tmp, "nacl.cri")
+        with open(script, "w") as fh:
+            fh.write(head + body + tail)
+
+        def numbers(text):
+            """AUTO counts, both YT tables' (atom, pop[, $1]) rows and
+            SUM, as printed."""
+            auto = re.search(r"\(n=(\d+) b=(\d+) r=(\d+) c=(\d+)\)", text)
+            rows = re.findall(r"^\s+\d+\s+(?:Na|Cl)\s+(\d+)\s+(\S+)\s+(\S+)"
+                              r"\s+[\d.]+ [\d.]+ [\d.]+(?:\s+(\S+))?$", text,
+                              re.M)
+            ssum = re.search(r"SUM\(1\) = (\S+)", text)
+            return (tuple(int(v) for v in auto.groups()), rows,
+                    float(ssum.group(1)))
+
+        # in-process, on the card; the YT lines' launches alone
+        buf = io.StringIO()
+        repl = Repl(out=buf, device=dev)
+        t0 = time.perf_counter()
+        repl.run_script(head)
+        ops.reset_launches()
+        repl.run_script(body)
+        launches = dict(ops.launches)
+        repl.run_script(tail)
+        out["in_process_s"] = time.perf_counter() - t0
+        text = buf.getvalue()
+        check(repl.nwarns == 0, f"REPL warnings {repl.nwarns}:\n{text}")
+        check(repl.sy.device == torch.device(dev), "REPL system device")
+        counts, rows, ssum = numbers(text)
+        check(counts == (4, 12, 10, 2), f"REPL AUTO counts {counts}")
+        check(len(rows) == 8 and all(r[3] for r in rows[4:]),
+              f"REPL YT tables: {rows}")
+        # the POSCAR lists the atoms species by species
+        order = np.argsort(c0.species_of, kind="stable")
+        dq = max(abs(float(r[2]) - q_slice[int(order[int(r[0])])])
+                 for r in rows)
+        d1 = max(abs(float(r[3]) - float(r[2])) for r in rows[4:])
+        dsum = abs(ssum - float(g0.f.sum())) / float(g0.f.sum())
+        check(dq <= 5.1e-9, f"REPL YT charges {dq:.3e} e off the slice's")
+        check(d1 <= 1e-8, f"REPL $1 integrable {d1:.3e} e off the charge")
+        check(dsum <= 1e-12, f"REPL SUM {dsum:.3e} off")
+        for k in launches:
+            check(launches[k] > 0, f"the REPL's YT lines launched no {k}")
+        log(f"REPL in-process on {dev}: {out['in_process_s']:.3f} s, "
+            f"nwarns 0, AUTO {counts}, YT charges within {dq:.3e} e of the "
+            f"slice phase's (printed to 1e-8), $1 within {d1:.3e} e, "
+            f"launches of the YT lines {launches}")
+        out.update(counts=list(counts), dq_e=dq, launches=launches)
+
+        # as a subprocess, with a run log
+        runlog = os.path.join(tmp, "run.jsonl")
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, CRITIC2_RUNLOG=runlog,
+                   PYTHONPATH=os.pathsep.join(
+                       [root] + [p for p in os.environ.get(
+                           "PYTHONPATH", "").split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "critic2_tpu_torch.cli",
+                            script], cwd=tmp, env=env, capture_output=True,
+                           text=True, timeout=600)
+        out["subprocess_s"] = time.perf_counter() - t0
+        check(p.returncode == 0, f"REPL subprocess exit {p.returncode}: "
+              f"{p.stderr[-2000:]}")
+        check("ended (0 warnings)" in p.stdout,
+              f"REPL subprocess warnings:\n{p.stdout[-2000:]}")
+        check(numbers(p.stdout) == (counts, rows, ssum),
+              "REPL subprocess printed other numbers")
+        with open(runlog) as fh:
+            recs = [json.loads(line) for line in fh]
+        check([r["kw"] for r in recs] == list(CLI_STEPS)
+              and all("wall_s" in r and r["nwarns"] == 0 for r in recs),
+              f"run log {recs}")
+        log(f"REPL subprocess: {out['subprocess_s']:.3f} s, exit 0, the "
+            f"same numbers, run log " + ", ".join(
+                f"{r['kw']} {r['wall_s']:.3f} s" for r in recs))
+        out["runlog"] = [[r["kw"], r["wall_s"]] for r in recs]
+    return out
+
+
+def parallel_cli_phase(sl, dev, card):
+    """Phase 13: the sharded path on a virtual 8-shard mesh of the card,
+    and the keyword REPL."""
+    import torch
+
+    from critic2_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(N_MESH, device=dev)
+    out = {"mesh": dict(mesh.shape)}
+    t0 = time.perf_counter()
+    out["yt"], sh, w = sharded_yt_leg(sl, mesh)
+    out["eval"] = sharded_eval_leg(sl["system"], mesh)
+    out["grid_ops"] = grid_ops_leg(sl["system"], mesh, sh, w)
+    del sh, w
+    torch.cuda.empty_cache()
+    out["parallel_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["cli"] = cli_leg(sl, dev)
+    out["cli_s"] = time.perf_counter() - t0
+    log(f"parallel leg {out['parallel_s']:.1f} s, CLI leg "
+        f"{out['cli_s']:.1f} s on {card}")
+    log(json.dumps({"parallel_cli": out}, default=float))
+    return out
+
+
 def late_launch_counts(sl, q, wf):
     """Kernel launches of one BS23 attempt on the qtree and wavefunction
     traces; run last, since the profiler slows every later launch."""
@@ -3263,6 +3695,9 @@ def main() -> int:
     fm = formats_phase(dev, card.splitlines()[0])
     log(f"formats phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    pc = parallel_cli_phase(sl, dev, card.splitlines()[0])
+    log(f"parallel and CLI phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     path_phase(sl, grid_out, args.profile)
     log(f"gradient-path and FFT phase: {time.perf_counter() - t0:.1f} s")
     late_launch_counts(sl, q, wf)
@@ -3282,6 +3717,7 @@ def main() -> int:
             "launches_quickstart": qs["launches"][name],
             "launches_expressions": ex["launches"][name],
             "launches_deloc": fm["launches"][name],
+            "launches_sharded": pc["yt"]["launches"][name],
             **m.get("extra", {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,9 @@ charge and any extra integrand in one batched adjoint solve.
 
 Device: rasterization, decomposition and the solve. Host: matching,
 merging, table assembly. The port carries method="yt" and "bader", the
-INTEGRABLE expressions, DISCARD and the atomic multipoles; the sharded
-mesh is not ported yet.
+INTEGRABLE expressions, DISCARD and the atomic multipoles; with a device
+mesh (parallel/mesh.make_mesh), the YT decomposition and its solves run
+slab-parallel across the mesh (parallel/yt_sharded).
 """
 from __future__ import annotations
 
@@ -112,13 +113,13 @@ def intgrid(system, method: str = "yt", ratom: float = 1.0,
     (src/integration@proc.f90:166-175): nnm=False assigns every attractor
     to its nearest atom; nnm=True keeps attractors farther than `ratom`
     (bohr) from any atom as non-nuclear maxima; noatoms=True treats all
-    attractors as NNM. Everything runs on the system's device.
+    attractors as NNM. Everything runs on the system's device, except
+    that with `mesh` (a parallel.mesh.Mesh with a "space" axis) the YT
+    weights are built and solved slab-parallel on the mesh's devices
+    (parallel.yt_sharded); identical weights.
     """
     if method not in ("yt", "bader"):
         raise ValueError(f"unknown integration method {method}")
-    if mesh is not None:
-        raise NotImplementedError("mesh= (sharded YT) is not ported to the "
-                                  "torch package yet")
     f = system.ref
     c = system.crystal
     if f.type == "grid":
@@ -131,7 +132,11 @@ def intgrid(system, method: str = "yt", ratom: float = 1.0,
         shape = tuple(grid_shape or (64, 64, 64))
         rho = _rasterize_field(f, shape, block=block)
 
-    if method == "yt":
+    if method == "yt" and mesh is not None:
+        from ..parallel.yt_sharded import yt_integrate_sharded
+
+        res = yt_integrate_sharded(mesh, c, rho, result=True)
+    elif method == "yt":
         res = yt_integrate(c, rho)
     else:
         res = bader_integrate(c, rho, block=max(block, 1 << 16),

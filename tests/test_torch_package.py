@@ -68,9 +68,10 @@ def _imported_roots(path):
 
 def test_no_jax_or_jax_package_import_anywhere():
     mods = list(_modules())
-    assert len(mods) >= 69
+    assert len(mods) >= 79
     assert not [p for p in mods if "_build" in p]
-    bad = [(os.path.relpath(p, ROOT), r) for p in mods
+    bad = [(os.path.relpath(p, ROOT), r)
+           for p in mods + [os.path.join(ROOT, "chip_smoke.py")]
            for r in _imported_roots(p) if r in FORBIDDEN]
     assert not bad, bad
     # the scan sees real imports
@@ -133,6 +134,14 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import critic2_tpu_torch.ops.interp\n"
             "import critic2_tpu_torch.ops.newton\n"
             "import critic2_tpu_torch.ops.yt_pass\n"
+            "import critic2_tpu_torch.parallel.mesh\n"
+            "import critic2_tpu_torch.parallel.sharded\n"
+            "import critic2_tpu_torch.parallel.grid_ops\n"
+            "import critic2_tpu_torch.parallel.yt_sharded\n"
+            "import critic2_tpu_torch.utils.chk\n"
+            "import critic2_tpu_torch.utils.clock\n"
+            "import critic2_tpu_torch.utils.runlog\n"
+            "import critic2_tpu_torch.cli\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib',"
             " 'critic2_tpu'))\n"
@@ -577,8 +586,24 @@ def test_public_signatures_keep_the_reference_parameters():
             if fault:
                 bad.append(f"{rname}.{qual}: {fault}")
     assert not bad, "\n".join(bad)
-    assert compared >= 200
+    assert compared >= 480
     assert used == set(SIGNATURE_ALLOW), "stale SIGNATURE_ALLOW entries"
+
+
+def test_repl_keeps_every_keyword():
+    """The port's REPL answers every keyword of the JAX package's, each
+    handler taking (self, args, lines)."""
+    import critic2_tpu.cli as jcli
+    import critic2_tpu_torch.cli as tcli
+
+    def handlers(cls):
+        return {k: v for k, v in vars(cls).items() if k.startswith("cmd_")}
+
+    ref, port = handlers(jcli.Repl), handlers(tcli.Repl)
+    assert len(ref) >= 87 and set(port) == set(ref)
+    for name, fn in port.items():
+        assert list(inspect.signature(fn).parameters) == \
+            ["self", "args", "lines"], name
 
 
 def _ref(crystal, rho, block=None, loop=None):

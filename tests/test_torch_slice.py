@@ -117,8 +117,14 @@ def test_intgrid_extra_fields_and_options_match_jax(nacl32):
     np.testing.assert_allclose([r.extra["sq"] for r in rt.rows],
                                [r.extra["sq"] for r in rj.rows],
                                rtol=1e-10, atol=0)
-    with pytest.raises(NotImplementedError):
-        tint.intgrid(ts, mesh=object())
+    # mesh= runs the sharded YT (parallel/yt_sharded): the same sums
+    from critic2_tpu_torch.parallel.mesh import make_mesh
+
+    rm = tint.intgrid(ts, method="yt", fields=extra, noatoms=True,
+                      mesh=make_mesh(4, device=CPU))
+    np.testing.assert_allclose([r.extra["sq"] for r in rm.rows],
+                               [r.extra["sq"] for r in rj.rows],
+                               rtol=1e-10, atol=0)
     # discard= is an expression now: an unknown name is refused
     with pytest.raises(ValueError, match="unknown variable rho"):
         tint.intgrid(ts, discard="rho")
