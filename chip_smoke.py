@@ -189,6 +189,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      launched by the YT lines) and through `python3 -m
      critic2_tpu_torch.cli` with CRITIC2_RUNLOG set (exit 0, no warning,
      the same numbers, one run-log line with wall_s per keyword);
+ 14. the sequential C++ reference (runs after phase 13, before phase 7's
+     gradient-path parts; critic2_tpu_torch/native.py, built with g++
+     from native/critic2_native.cpp beside the CUDA kernels), on the
+     card's results of the earlier phases and the same inputs on the
+     host: the slice phase's 256^3 charges against native.yt_charges
+     (same nattr, basins matched by the native label at each card
+     attractor, each within 1e-6 e) and one device's labels (equal
+     except where two basin weights tie within 1e-12; no YT solve is
+     run again); the grid phase's default CP list against
+     native.auto_drain from the same 2,071 WS seeds (each native CP an
+     image of a card CP of its signature within 1e-6 bohr, every card CP
+     reached) and each card CP re-converged by a damped host Newton on
+     native.tricubic_batch (shift 1e-6 bohr); interp_soa f64 at phase
+     6's 131,072 points against native.tricubic_batch (1e-10 of each
+     quantity's largest); nciplot f64 at 256^3 against native.nci_sweep
+     (the .dat count equal up to the card's points within 1e-12 of a
+     cutoff); trace_paths colours of the qtree phase's first 2,048 seeds
+     against native.trace_colors (every difference printed; at most 0.1 %
+     off a separatrix, where a 1e-8 bohr shift of the seed changes the
+     colour on either side);
+     rho_eval_screened on 16,384 points of the 8x8x6 tile against
+     native.wfn_eval_seq (1e-10); autocp on the 4x4x2 tile against
+     native.wfn_auto_drain from the same pair seeds (the CPs off the
+     nuclei with their signatures, 1e-6 bohr); each leg's card wall
+     beside the reference's host wall, the host CPU and its OpenMP
+     threads;
 then one JSON line of kernel records and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -449,7 +475,7 @@ def slice_phase(dev, n):
             "intgrid_s": t_timed, "nattr": r.nattr_raw,
             "punity_e": punity, "dq_vs_f64_jacobi_e": dq,
             "launches": launches, "res": res, "f3": f3, "dv": dv,
-            "intres": r}
+            "intres": r, "q_basins": q_raw, "iattr": np.asarray(res.iattr)}
 
 
 def main_shape_phase(sl):
@@ -1798,16 +1824,38 @@ def qtree_phase(sl, dev):
     case at 48^3 and maxl=2 card against CPU."""
     import numpy as np
 
+    from critic2_tpu_torch.analysis import qtree as qmod
     from critic2_tpu_torch.analysis.qtree import qtree_integrate
 
     s = sl["system"]
     stats = {}
     cnt, restore = counting_attempts()
+    # phase 14 traces the first N_TRACE colour seeds again: keep them
+    tr = sl["qtree_trace"] = {}
+    traced = qmod.trace_paths
+
+    def recording(fn, x0, **kw):
+        if len(tr.get("seeds", ())) < N_TRACE:
+            x = x0.cpu().numpy()
+            if not tr:
+                tr.update(seeds=x[:N_TRACE], targets=kw["targets"],
+                          tgt_ids=np.tile(np.arange(s.crystal.ncel),
+                                          len(kw["targets"])
+                                          // s.crystal.ncel),
+                          rt=np.asarray(kw["rterm"]), mstep=kw["mstep"])
+            elif np.array_equal(np.asarray(kw["rterm"]), tr["rt"]):
+                tr["seeds"] = np.concatenate([tr["seeds"], x])[:N_TRACE]
+        return traced(fn, x0, **kw)
+
+    qmod.trace_paths = recording
     try:
         r, t = wall_s(lambda: qtree_integrate(
             s, maxl=4, sphfactor=0.9, block=1 << 16, stats=stats))
     finally:
         restore()
+        qmod.trace_paths = traced
+    check(len(tr["seeds"]) == N_TRACE, f"qtree traced {len(tr['seeds'])} "
+          f"seeds, fewer than {N_TRACE}")
     q_yt = sum(row.pop for row in sl["intres"].rows)
     dq = abs(float(r.pops.sum()) - q_yt)
     check(np.isfinite(r.pops).all() and (r.pops > 0).all()
@@ -3259,12 +3307,20 @@ def sharded_yt_leg(sl, mesh):
     t0 = time.perf_counter()
     lab = sh.labels
     out["labels_s"] = time.perf_counter() - t0
-    diff = np.flatnonzero(lab.reshape(-1) != one.labels.reshape(-1))
-    # every basin's weight grid (nattr <= 8: one forward solve)
+    one_lab, t_one = wall_s(lambda: one.labels)
+    diff = np.flatnonzero(lab.reshape(-1) != one_lab.reshape(-1))
+    # every basin's weight grid (nattr <= 8: one forward solve); where
+    # the two largest tie within 1e-12
     w = gather(sh._basin_chunk(0, sh.nattr), dim=1).reshape(sh.nattr, -1)
-    top = torch.topk(w[:, torch.as_tensor(diff, device=w.device)], 2,
-                     dim=0).values
-    ntie = int(((top[0] - top[1]) <= 1e-12).sum())
+    top = torch.topk(w, 2, dim=0).values
+    tie = ((top[0] - top[1]) <= 1e-12).cpu().numpy()
+    del top
+    ntie = int(tie[diff].sum())
+    # phase 14 holds one device's labels to the sequential sweep's
+    check(np.array_equal(np.asarray(one.iattr), sl["iattr"]),
+          "one device's attractors differ from the slice phase's")
+    sl["yt_host"] = {"labels": one_lab, "iattr": sl["iattr"],
+                     "labels_s": t_one, "tie": tie}
     log(f"sharded labels ({out['labels_s']:.3f} s, nboundary "
         f"{sh.nboundary}, one device {one.nboundary}): {len(diff)} points "
         f"differ from one device's, {ntie} of them ties within 1e-12")
@@ -3595,6 +3651,377 @@ def parallel_cli_phase(sl, dev, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+N_TRACE = 2048                 # path-colour seeds taken from the qtree run
+N_GTO = 16384                  # GTO points of the 8x8x6 tile
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (/proc/cpuinfo, else lscpu) and its
+    logical CPU count."""
+    import platform
+
+    name = None
+    try:
+        with open("/proc/cpuinfo") as fh:
+            name = next((ln.split(":", 1)[1].strip() for ln in fh
+                         if ln.startswith("model name")), None)
+    except OSError:
+        pass
+    if name is None:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=10).stdout
+            name = next((ln.split(":", 1)[1].strip()
+                         for ln in out.splitlines()
+                         if ln.startswith("Model name")), None)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return (f"{name or platform.machine() + ' (model not reported)'}, "
+            f"{os.cpu_count()} logical CPUs")
+
+
+def native_yt_leg(sl, g, offs, wts):
+    """The slice phase's charges and one device's labels against the
+    sequential fractional-weight sweep on the same 256^3 field. The
+    sweep stays in the main thread: in a worker thread its millions of
+    small allocations ran slower on the card's host."""
+    import numpy as np
+
+    from critic2_tpu_torch import native
+
+    yh = sl["yt_host"]
+    (lab_n, q_n), t = wall_s(lambda: native.yt_charges(g, offs, wts, g))
+    q_n = q_n * sl["dv"]
+    check(len(q_n) == sl["nattr"], f"native yt nattr {len(q_n)}, card "
+          f"{sl['nattr']}")
+    # the native basin at each of the card's attractors
+    perm = lab_n.reshape(-1)[yh["iattr"]]
+    check(sorted(perm.tolist()) == list(range(len(q_n))),
+          f"card attractors fall in native basins {perm.tolist()}")
+    dq = np.abs(sl["q_basins"] - q_n[perm])
+    check(float(dq.max()) <= 1e-6, f"YT charges against the sequential "
+          f"sweep: {dq.tolist()} e")
+    diff = np.flatnonzero(perm[yh["labels"].reshape(-1)] != lab_n.reshape(-1))
+    ntie = int(yh["tie"].reshape(-1)[diff].sum())
+    check(ntie == len(diff), f"YT labels: {len(diff) - ntie} points differ "
+          f"from the sequential sweep's off a tie")
+    log(f"native YT {N_SLICE}^3: nattr {len(q_n)} both, per-basin |q(card) "
+        f"- q(sequential)| max {dq.max():.3e} e (bar 1e-6 e), labels differ "
+        f"at {len(diff)} points, all ties of two weights within 1e-12; "
+        f"card intgrid {sl['intgrid_s']:.3f} s + labels "
+        f"{yh['labels_s']:.3f} s, sequential sweep {t:.3f} s")
+    return {"card_s": sl["intgrid_s"], "host_s": t, "nattr": len(q_n),
+            "dq_max_e": float(dq.max()), "labels_differ": len(diff),
+            "ties": ntie}
+
+
+def native_cp_leg(s, cpl, card_s, g):
+    """The grid phase's default CP list against the sequential AUTO
+    drain from the same WS seeds, and each CP re-converged by a damped
+    host Newton on the native tricubic."""
+    import numpy as np
+
+    from critic2_tpu_torch import native
+    from critic2_tpu_torch.analysis.autocp import Seed, cell_cp_list, gen_seeds
+
+    c = s.crystal
+    m = np.asarray(c.m_x2c)
+    xs = np.mod(gen_seeds(c, [Seed(typ="ws")], device=s.device), 1.0)
+    xs = np.unique(np.round(xs, 10), axis=0)
+    (xn, sn), t = wall_s(lambda: native.auto_drain(g, m, xs))
+    # the card enters the nuclei at the atoms and drops Newton's maxima
+    # within nuceps of them (2 grid steps); the drain keeps those
+    nuceps = 2.0 * float(np.max(np.asarray(c.aa) / np.asarray(g.shape)))
+    nucl = c.distmat(xn, c.x_frac).min(axis=1) < nuceps
+    check(bool((sn[nucl] == -3).all()), "native CPs at the nuclei: "
+          f"signatures {sn[nucl].tolist()}")
+    xn, sn = xn[~nucl], sn[~nucl]
+    # the drain keeps no symmetry: it holds the images its seeds reach.
+    # Each must be an image of a card CP of its signature, and every card
+    # CP must be reached
+    cell = [(i, x) for i, x, _ in cell_cp_list(s, cpl)
+            if not cpl.cps[i].isnuc]
+    xa = np.array([x for _, x in cell])
+    ia = np.array([i for i, _ in cell])
+    ta = np.array([cpl.cps[i].typ for i in ia])
+    d = np.where(sn[:, None] == ta[None, :], c.distmat(xn, xa), np.inf)
+    k = d.argmin(axis=1)
+    dn = d[np.arange(len(xn)), k]
+    far = np.flatnonzero(~(dn <= 1e-6))
+    for i in far:
+        log(f"  native CP at {xn[i].tolist()} (signature {sn[i]}): nearest "
+            f"card image of its signature {dn[i]:.3e} bohr away")
+    check(len(far) == 0, f"{len(far)} native CPs are no image of a card CP")
+    hit = np.unique(ia[k])
+    noff = sum(not cp.isnuc for cp in cpl.cps)
+    check(len(hit) == noff, f"the native drain reaches {len(hit)} of the "
+          f"card's {noff} nonequivalent CPs off the nuclei")
+    nimg = len(xa)
+    dpos = float(dn.max())
+    # damped host Newton from each card CP (steps capped at 0.1 bohr)
+    x0 = np.array([cp.x for cp in cpl.cps], dtype=float)
+    x = x0.copy()
+    for _ in range(60):
+        _, gr, h6 = native.tricubic_batch(g, x % 1.0)
+        H = h6[:, [0, 3, 4, 3, 1, 5, 4, 5, 2]].reshape(-1, 3, 3)
+        step = np.linalg.solve(H, gr[:, :, None])[:, :, 0]
+        nrm = np.linalg.norm(step @ m.T, axis=1, keepdims=True)
+        x = x - np.where(nrm > 0.1, step * (0.1 / np.maximum(nrm, 1e-300)),
+                         step)
+    dx = x - x0
+    dx -= np.round(dx)
+    shift = float(np.linalg.norm(dx @ m.T, axis=1).max())
+    check(shift <= 1e-6, f"CPs re-converged on the native tricubic move "
+          f"{shift:.3e} bohr")
+    log(f"native AUTO from the same {len(xs)} WS seeds: {len(xn)} CPs off "
+        f"the nuclei ({int(nucl.sum())} maxima at them), each an image of "
+        f"one of the card's {noff} nonequivalent CPs off the nuclei ({nimg} "
+        f"in the cell) of its signature within {dpos:.3e} bohr (bar 1e-6), "
+        f"every one reached; host Newton on the native tricubic moves the "
+        f"card's {len(cpl.cps)} CPs {shift:.3e} bohr (bar 1e-6); card "
+        f"autocp {card_s:.3f} s, sequential drain {t:.3f} s")
+    return {"card_s": card_s, "host_s": t, "ncp_native": len(xn),
+            "native_nuclear_maxima": int(nucl.sum()), "ncp_cell": nimg,
+            "nonequivalent": noff,
+            "dpos_bohr": dpos, "reconverge_bohr": shift}
+
+
+def native_interp_leg(gd, g):
+    """interp_soa in f64 at phase 6's 131,072 points against the native
+    tricubic batch."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch import native
+    from critic2_tpu_torch.ops.interp import interp_soa
+
+    pts = np.random.default_rng(11).random((3, 131072))
+    pd = torch.as_tensor(pts, device=gd.device)
+    card = interp_soa(gd, pd)
+    ms = cuda_ms(lambda: interp_soa(gd, pd), 5)
+    ref, t = wall_s(lambda: native.tricubic_batch(g, pts.T))
+    errs = {}
+    for nm, a, b in zip(("value", "gradient", "Hessian"), card, ref):
+        errs[nm] = rel_err(a.cpu().reshape(-1), torch.as_tensor(b.T).reshape(-1))
+        check(errs[nm] <= 1e-10, f"interp_soa vs native tricubic, {nm}: "
+              f"{errs[nm]:.3e}")
+    log(f"native tricubic at 131,072 points: value {errs['value']:.3e}, "
+        f"gradient {errs['gradient']:.3e}, Hessian {errs['Hessian']:.3e} "
+        f"(relative to the largest, bar 1e-10); card {ms:.4f} ms, host "
+        f"{t * 1e3:.3f} ms")
+    return {"card_s": ms / 1e3, "host_s": t, **errs}
+
+
+def native_nci_leg(s, g):
+    """nciplot in f64 at 256^3 against the native NCI sweep (rhocut 0.2,
+    dimcut 2.0)."""
+    import numpy as np
+
+    from critic2_tpu_torch import native
+    from critic2_tpu_torch.analysis.nci import nciplot
+
+    n = N_SLICE
+    r, tc = wall_s(lambda: nciplot(s, nstep=(n, n, n), precision="f64"))
+    ndat = r.ndat
+    acr = r.crho.abs()
+    near = int((((acr - 20.0).abs() <= 20.0 * 1e-12)
+                | ((r.cgrad_raw - 2.0).abs() <= 2.0 * 1e-12)).sum())
+    del r, acr
+    nn, t = wall_s(lambda: native.nci_sweep(g, np.asarray(s.crystal.m_c2x),
+                                            0.2, 2.0))
+    check(abs(ndat - nn) <= near, f"nciplot f64 selects {ndat} points, the "
+          f"native sweep {nn}, {near} points lie within 1e-12 of a cutoff")
+    log(f"native NCI sweep {n}^3: {nn} .dat points, card {ndat} (difference "
+        f"{ndat - nn}; {near} card points within 1e-12 of a cutoff); card "
+        f"nciplot {tc:.3f} s, host sweep {t:.3f} s")
+    return {"card_s": tc, "host_s": t, "ndat": ndat, "ndat_native": nn,
+            "near_cutoff": near}
+
+
+def native_path_leg(s, tr, g):
+    """trace_paths colours of the qtree phase's first 2,048 seeds against
+    the sequential tracer, the same targets and capture radii."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch import native
+    from critic2_tpu_torch.ops.ode import trace_paths
+
+    seeds, tgt, ids, rt = tr["seeds"], tr["targets"], tr["tgt_ids"], tr["rt"]
+    fn = s.ref.eval_fn(nder=1)
+    m = np.asarray(s.crystal.m_x2c)
+
+    def card(x):
+        """The card's colours by the reference tracer's rule: the
+        captured target's id; a gradient-zero end takes the nearest
+        target within 0.5 bohr."""
+        xf, st, ti, _, _ = trace_paths(
+            fn, torch.as_tensor(x, dtype=torch.float64, device=s.device),
+            iup=1, targets=tgt, rterm=rt, mstep=tr["mstep"])
+        st, ti, xf = st.cpu().numpy(), ti.cpu().numpy(), xf.cpu().numpy()
+        col = np.where((st == 0) & (ti >= 0), ids[np.clip(ti, 0, None)], -1)
+        for i in np.flatnonzero(st == 1):
+            d = np.linalg.norm(tgt - xf[i], axis=1)
+            if d.min() < 0.5:
+                col[i] = ids[int(d.argmin())]
+        return col
+
+    def ref(x):
+        return native.trace_colors(g, m, x, tgt, ids, rt,
+                                   mstep=tr["mstep"])
+
+    col, tc = wall_s(lambda: card(seeds))
+    (cn, nev), t = wall_s(lambda: ref(seeds))
+    bad = np.flatnonzero(col != cn)
+    # a seed on a separatrix: moved 1e-8 bohr along an axis, it changes
+    # colour on the card or in the reference; there either answer is right
+    shift = 1e-8 * np.concatenate([np.eye(3), -np.eye(3)])
+    px = (seeds[bad][:, None, :] + shift[None]).reshape(-1, 3)
+    pc = card(px).reshape(len(bad), 6) if len(bad) else None
+    pn = ref(px)[0].reshape(len(bad), 6) if len(bad) else None
+    ties = 0
+    for j, i in enumerate(bad):
+        tie = bool((pc[j] != col[i]).any() or (pn[j] != cn[i]).any())
+        ties += tie
+        log(f"  path colour differs: seed {seeds[i].tolist()} card {col[i]} "
+            f"native {cn[i]}; moved 1e-8 bohr along +-x, y, z: card "
+            f"{pc[j].tolist()}, native {pn[j].tolist()}"
+            + (" (a separatrix)" if tie else ""))
+    check(len(bad) - ties <= 0.001 * len(seeds), f"{len(bad) - ties} of "
+          f"{len(seeds)} path colours off a separatrix differ from the "
+          "sequential tracer's")
+    log(f"native path colours, {len(seeds)} qtree seeds: {len(bad)} differ "
+        f"({100 * len(bad) / len(seeds):.3f} %), {ties} of them on a "
+        f"separatrix (bar 0.1 % off one), {int((cn < 0).sum())} uncoloured; "
+        f"card trace_paths {tc:.3f} s, sequential tracer {t:.3f} s ({nev} "
+        "evaluations)")
+    return {"card_s": tc, "host_s": t, "differ": len(bad),
+            "separatrix": ties, "nevals": nev}
+
+
+def native_gto_leg(wf, dev):
+    """rho_eval_screened (nder=2) on 16,384 points of the 8x8x6 tile
+    against the sequential screened GTO evaluation."""
+    import numpy as np
+    import torch
+
+    from critic2_tpu_torch import native
+
+    w = wf["_wfn"]
+    # the atoms' bounding box and 2 bohr around it
+    lo, hi = w.atpos.min(axis=0) - 2.0, w.atpos.max(axis=0) + 2.0
+    pts = lo + np.random.default_rng(14).random((N_GTO, 3)) * (hi - lo)
+    xT = torch.as_tensor(pts.T.copy(), dtype=torch.float64, device=dev)
+    wall_s(lambda: w.rho_eval_screened(xT, nder=2))
+    (f, gf, h6), tc = wall_s(lambda: w.rho_eval_screened(xT, nder=2))
+    (rho, gr, hs, nvisit), t = wall_s(lambda: native.wfn_eval_seq(w, pts, 2))
+    h6n = hs.reshape(-1, 9)[:, [0, 4, 8, 1, 2, 5]]
+    errs = {}
+    for nm, a, b in (("rho", f, rho), ("gradient", gf.T, gr),
+                     ("Hessian", h6.T, h6n)):
+        errs[nm] = rel_err(a.cpu(), torch.as_tensor(b))
+        check(errs[nm] <= 1e-10, f"screened GTO vs native, {nm}: "
+              f"{errs[nm]:.3e}")
+    log(f"native GTO evaluation, {N_GTO} points of the {TILE} tile, nder=2: "
+        f"rho {errs['rho']:.3e}, gradient {errs['gradient']:.3e}, Hessian "
+        f"{errs['Hessian']:.3e} (relative to the largest, bar 1e-10); card "
+        f"{tc * 1e3:.3f} ms, sequential {t * 1e3:.3f} ms ({nvisit} primitive "
+        f"visits)")
+    return {"card_s": tc, "host_s": t, **errs}
+
+
+def native_mol_cp_leg(dev):
+    """autocp on the 4x4x2 H2 tile (dense GTO Newton) against the
+    sequential drain from the same pair seeds."""
+    import tempfile
+
+    import numpy as np
+
+    from critic2_tpu_torch import System, native
+    from critic2_tpu_torch.analysis.autocp import Seed, autocp, gen_seeds
+    from critic2_tpu_torch.fields.wfn import Wavefunction
+
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"), "h2.molden")
+    with open(path, "w") as fh:
+        fh.write(H2_MOLDEN)
+    w = Wavefunction.from_file(path).tile(EXPR_TILE)
+    s = System.from_wavefunction(w, device=dev)
+    autocp(s)
+    cpl, tc = wall_s(lambda: autocp(s))
+    c = s.crystal
+    xs = np.mod(gen_seeds(c, [Seed(typ="pair")], device=dev), 1.0)
+    b = np.asarray(c.molborder)
+    xs = xs[np.all((xs >= b) & (xs <= 1.0 - b), axis=1)]
+    xs = np.unique(np.round(xs, 10), axis=0)
+    (xn, sn, nev), t = wall_s(lambda: native.wfn_auto_drain(
+        s.ref.wfn, c.x2c(xs)))
+    # the card's list enters nuclei at the atoms and drops the Newton
+    # maxima within nuceps (0.1 bohr) of them; the drain keeps them
+    atpos = np.asarray(s.ref.wfn.atpos)
+    dn = np.linalg.norm(xn[:, None, :] - atpos[None], axis=2).min(1)
+    nucl = dn < 0.1
+    check(bool((sn[nucl] == -3).all()), "native maxima near the nuclei: "
+          f"signatures {sn[nucl].tolist()}")
+    cps = [cp for cp in cpl.cps if not cp.isnuc]
+    xa = np.array([cp.r for cp in cps])
+    ta = np.array([cp.typ for cp in cps])
+    check(len(xa) == int((~nucl).sum()), f"autocp on the {EXPR_TILE} tile: "
+          f"{len(xa)} CPs off the nuclei, the native drain {(~nucl).sum()}")
+    d = np.linalg.norm(xa[:, None, :] - xn[~nucl][None], axis=2)
+    dmax = 0.0
+    free = np.ones(d.shape[1], dtype=bool)
+    for i in range(len(xa)):
+        cand = np.flatnonzero(free & (sn[~nucl] == ta[i]))
+        check(len(cand) > 0, f"molecular CP {i} has no native partner")
+        k = cand[np.argmin(d[i, cand])]
+        free[k] = False
+        dmax = max(dmax, float(d[i, k]))
+    check(dmax <= 1e-6, f"molecular CPs differ by {dmax:.3e} bohr")
+    log(f"native molecular AUTO on the {EXPR_TILE} tile ({w.npri} "
+        f"primitives), {len(xs)} pair seeds: {len(xa)} CPs off the nuclei "
+        f"with their signatures both, within {dmax:.3e} bohr (bar 1e-6), "
+        f"{int(nucl.sum())} native maxima at the nuclei; card autocp "
+        f"{tc:.3f} s, sequential drain {t:.3f} s ({nev} evaluations)")
+    return {"card_s": tc, "host_s": t, "ncp": len(xa), "dpos_bohr": dmax,
+            "native_nuclear_maxima": int(nucl.sum())}
+
+
+def native_phase(sl, grid_out, wf, dev, card):
+    """Phase 14: the card's results against the sequential C++ reference
+    (critic2_tpu_torch/native.py) on the same inputs; the YT leg reuses
+    the slice and sharded phases' results and solves nothing again."""
+    import torch
+
+    from critic2_tpu_torch import native
+    from critic2_tpu_torch.analysis.yt import _grid_ws_neighbors
+
+    s = sl["system"]
+    gd = s.ref.grid.f
+    g = gd.cpu().numpy()
+    offs, wts = _grid_ws_neighbors(s.crystal, g.shape)
+    out = {"yt": native_yt_leg(sl, g, offs, wts)}
+    out["cps"] = native_cp_leg(s, sl["cpl"],
+                               grid_out["autocp"]["default"]["autocp_s"], g)
+    out["tricubic"] = native_interp_leg(gd, g)
+    out["nci"] = native_nci_leg(s, g)
+    out["paths"] = native_path_leg(s, sl["qtree_trace"], g)
+    del g
+    torch.cuda.empty_cache()
+    out["gto"] = native_gto_leg(wf, dev)
+    out["mol_cps"] = native_mol_cp_leg(dev)
+    out["host_cpu"] = host_cpu()
+    out["omp_threads"] = native.omp_threads()
+    log(f"card {card}; host {out['host_cpu']}, native OpenMP threads "
+        f"{out['omp_threads']} (tricubic batch and NCI sweep; the rest one "
+        "core)")
+    for leg in ("yt", "cps", "tricubic", "nci", "paths", "gto", "mol_cps"):
+        log(f"  {leg}: card {out[leg]['card_s']:.4f} s, sequential "
+            f"reference {out[leg]['host_s']:.4f} s")
+    log(json.dumps({"native": out}, default=float))
+    return out
+
+
 def late_launch_counts(sl, q, wf):
     """Kernel launches of one BS23 attempt on the qtree and wavefunction
     traces; run last, since the profiler slows every later launch."""
@@ -3639,6 +4066,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from concurrent.futures import ThreadPoolExecutor
+
+    from critic2_tpu_torch import native
     from critic2_tpu_torch.ops import _ext
 
     card = subprocess.run(
@@ -3654,8 +4084,14 @@ def main() -> int:
     t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    _ext.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    # the CUDA kernels (one nvcc each) and the host reference (g++) build
+    # side by side; either failing fails the run
+    with ThreadPoolExecutor(1) as pool:
+        host_ref = pool.submit(native.build)
+        _ext.build()
+        check(host_ref.result(), "the native reference did not load")
+    log(f"build: {time.perf_counter() - t0:.1f} s (native reference "
+        f"{os.path.basename(native._lib_path())})")
     for name, out in _ext.build_log.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -3697,6 +4133,9 @@ def main() -> int:
     t0 = time.perf_counter()
     pc = parallel_cli_phase(sl, dev, card.splitlines()[0])
     log(f"parallel and CLI phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    native_phase(sl, grid_out, wf, dev, card.splitlines()[0])
+    log(f"native reference phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     path_phase(sl, grid_out, args.profile)
     log(f"gradient-path and FFT phase: {time.perf_counter() - t0:.1f} s")

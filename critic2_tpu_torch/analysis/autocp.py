@@ -502,7 +502,11 @@ def autocp(system, seeds: list[Seed] | None = None, gfnormeps: float = 1e-12,
 
     xc_all = c.c2x(xfin)
     xc_all -= np.floor(xc_all)
-    xc_all[xc_all > 1.0 - 1e-10] = 0.0
+    # |grad f| < gfnormeps fixes a position only to rounding noise, so a
+    # CP on a lattice plane lands within ~1e-15 of it on either side; put
+    # it on the plane, or a symmetry image of a point at +1e-16 wraps to
+    # 1 - 1e-16 and CPREPORT LONG prints 1.00000000 for 0
+    xc_all[(xc_all < 1e-10) | (xc_all > 1.0 - 1e-10)] = 0.0
 
     alive = np.ones(len(xc_all), dtype=bool)
     if c.ismolecule:

@@ -85,11 +85,14 @@ RTOL = 1e-8         # printed numbers: port against JAX
 # are rounding noise at this size (autocp's convergence bar is 1e-10)
 ATOL = 1e-10
 
-# the scripts of test_cli.py:40, :54 and :66
+# the scripts of test_cli.py:40, :54 and :66, and CPREPORT LONG
 SCRIPTS = {
     "point-auto": "crystal {p}\npoint 0.25 0.25 0.25\nauto\ncpreport\n",
     "load-as": 'crystal {p}\nload as "$0" 16 16 16 id rho\nsum 1\nmean 1\n',
     "yt": 'crystal {p}\nload as "$0" 20 20 20\nyt\n',
+    # the complete cell list of MgO on its promolecular field: a CP on a
+    # lattice plane, and every image the symmetry maps onto the plane
+    "mgo-cpreport-long": "crystal library mgo\nauto\ncpreport long\n",
 }
 
 

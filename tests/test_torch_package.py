@@ -68,7 +68,7 @@ def _imported_roots(path):
 
 def test_no_jax_or_jax_package_import_anywhere():
     mods = list(_modules())
-    assert len(mods) >= 79
+    assert len(mods) >= 80
     assert not [p for p in mods if "_build" in p]
     bad = [(os.path.relpath(p, ROOT), r)
            for p in mods + [os.path.join(ROOT, "chip_smoke.py")]
@@ -142,6 +142,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import critic2_tpu_torch.utils.clock\n"
             "import critic2_tpu_torch.utils.runlog\n"
             "import critic2_tpu_torch.cli\n"
+            "import critic2_tpu_torch.native\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib',"
             " 'critic2_tpu'))\n"
@@ -468,6 +469,29 @@ def test_formats_slice_entry_points_default_to_cuda(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+# The one module exempt from "cuda by default": the sequential C++
+# reference the card's results are held against runs on the host by
+# design, so it takes no device and launches nothing on the card.
+HOST_ONLY = {"critic2_tpu_torch.native"}
+
+
+def test_native_is_the_one_host_only_module(monkeypatch):
+    """critic2_tpu_torch.native, the host reference, has no device
+    parameter anywhere and answers with CUDA unavailable; it takes
+    tensors on any device and returns numpy."""
+    from critic2_tpu_torch import native
+
+    assert HOST_ONLY == {native.__name__}
+    fns = dict(_public_callables(native))
+    assert len(fns) >= 14
+    for name, fn in fns.items():
+        assert "device" not in inspect.signature(fn).parameters, name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tris = native.hull(torch.as_tensor(
+        np.random.default_rng(0).normal(size=(12, 3))))
+    assert isinstance(tris, np.ndarray) and len(tris) > 0
 
 
 def test_explicit_cpu_device_and_dtypes():
