@@ -17,7 +17,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      40x50x37 grid whose tiles are ragged on both plane axes, a smooth
      single-maximum density whose in-plane chains cross many tiles, and
      an 8x264x264 grid whose tiles exceed a block's threads.
-     yt_pass must match to rtol 1e-6 (f32) / 1e-13 (f64); yt_gs_pass
+     yt_pass must match bitwise (its relative error printed); yt_gs_pass
      sweep pairs are iterated to a zero flag and the fixpoints must be
      bitwise equal and every flag the same;
   4. the slice: promolecular NaCl analogue (a = 10.66 bohr, 4 atoms)
@@ -25,9 +25,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      once timed with the launch counts reset just before; partition of
      unity and agreement with the f64 Jacobi route (_xla_sweep) on the
      same card to 1e-8 e per basin; each kernel against its plain version
-     at the shapes the slice gives it (yt_gs_pass bitwise);
+     at the shapes the slice gives it (both bitwise);
   5. per-kernel times at the slice's shape with CUDA events, beside the
-     plain versions and the bytes bound; yt_gs_pass's grid barriers per
+     plain versions and the bytes bound; yt_pass also at P = 1 and at
+     multipoles' chunk of P = 8, in f64 and f32, each bitwise against its
+     plain version and beside one torch.sparse.addmm on the same operator
+     in CSR form (its library yardstick); yt_gs_pass's grid barriers per
      sweep beside the earlier global-Jacobi schedule's count (from the
      plain version's in-plane iterations), and the time, grid barriers
      and block 0's local iterations of each of the 16 sweeps of one
@@ -55,7 +58,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      1e-10 e, 9 integrands a solve go through yt_gs_pass in chunks of
      8 + 1, each solve's launches fit the solver's schedule; then yt_pass
      (f64) and a yt_gs_pass sweep pair (f32) on one attractor's 9
-     sign-changing integrands against their plain versions (1e-13 /
+     sign-changing integrands against their plain versions (both
      bitwise), and four of that attractor's multipoles (l = 0, 1, 2)
      against the f64 Jacobi route (1e-8);
      FFT grids - lap, grad, pot, hxx1 against the CPU (1e-10 relative),
@@ -197,18 +200,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      (same nattr, basins matched by the native label at each card
      attractor, each within 1e-6 e) and one device's labels (equal
      except where two basin weights tie within 1e-12; no YT solve is
-     run again); the grid phase's default CP list against
-     native.auto_drain from the same 2,071 WS seeds (each native CP an
-     image of a card CP of its signature within 1e-6 bohr, every card CP
-     reached) and each card CP re-converged by a damped host Newton on
+     run again); the grid phase's heavy CP list against
+     native.auto_drain from the same 39,312 WS seeds of depth 2 (each
+     native CP an image of a card CP of its signature within 1e-6 bohr,
+     every card CP reached) and each card CP re-converged by a damped
+     host Newton on
      native.tricubic_batch (shift 1e-6 bohr); interp_soa f64 at phase
      6's 131,072 points against native.tricubic_batch (1e-10 of each
      quantity's largest); nciplot f64 at 256^3 against native.nci_sweep
      (the .dat count equal up to the card's points within 1e-12 of a
-     cutoff); trace_paths colours of the qtree phase's first 2,048 seeds
-     against native.trace_colors (every difference printed; at most 0.1 %
-     off a separatrix, where a 1e-8 bohr shift of the seed changes the
-     colour on either side);
+     cutoff); trace_paths colours of every seed the qtree phase traced
+     (47,214) against native.trace_colors (every difference printed; at
+     most 0.1 % off a separatrix, where a 1e-8 bohr shift of the seed
+     changes the colour on either side; every seed is shifted so, and the
+     share of all seeds on a separatrix is printed);
      rho_eval_screened on 16,384 points of the 8x8x6 tile against
      native.wfn_eval_seq (1e-10); autocp on the 4x4x2 tile against
      native.wfn_auto_drain from the same pair seeds (the CPs off the
@@ -285,6 +290,38 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
 
 
+def flux_csr(chiP, offs, adjoint=True):
+    """The flux operator R of yt_pass's out = f + R s as an (N, N) sparse
+    CSR tensor on chiP's device: row x holds the columns x + d_k, wrapped
+    periodically, with the values chiP[k, x]; int32 indices, the columns
+    sorted within each row. torch.sparse.addmm(f, R, s) on (N, P)
+    operands then computes yt_pass's function (in another term order).
+    The yardstick of yt_pass's time; the port never calls it."""
+    import warnings
+
+    import torch
+
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    K, n1, n2, n3 = chiP.shape
+    N = n1 * n2 * n3
+    ax = [torch.arange(n, device=chiP.device) for n in (n1, n2, n3)]
+    col = torch.stack([
+        (((ax[0] + d[0]) % n1)[:, None, None] * n2
+         + ((ax[1] + d[1]) % n2)[None, :, None]) * n3
+        + ((ax[2] + d[2]) % n3)[None, None, :]
+        for d in ops._disp(offs, adjoint)], -1).reshape(N, K)
+    col, perm = col.sort(1)
+    val = chiP.reshape(K, N).T.gather(1, perm)
+    crow = torch.arange(0, N * K + 1, K, dtype=torch.int32,
+                        device=chiP.device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "Sparse CSR tensor support")
+        return torch.sparse_csr_tensor(
+            crow, col.to(torch.int32).reshape(-1), val.reshape(-1),
+            size=(N, N), check_invariants=False)
+
+
 def gs_fixpoint(gs, op, f3, offs, adjoint, tag):
     """Gauss-Seidel sweep pairs from f to a pair with both flags 0; returns
     (fixpoint, flags, the first sweep's schedule counters)."""
@@ -348,7 +385,6 @@ def kernel_phase(dev, n):
                         torch.as_tensor(rng.random((P,) + shape),
                                         device=dev)])[:P]
         for dt in dtypes:
-            rtol = 1e-6 if dt == f32 else 1e-13
             for adjoint in dirs:
                 op = yt._shifted(chi, offs, dt) if adjoint else chi.to(dt)
                 f3 = fs.to(dt)
@@ -361,7 +397,9 @@ def kernel_phase(dev, n):
                 out_p = ops.yt_pass_plain(op, s, f3, offs=offs,
                                           adjoint=adjoint)
                 e = rel_err(out_k, out_p)
-                check(e <= rtol, f"yt_pass {tag}: rel err {e:.3e} > {rtol}")
+                check(torch.equal(out_k, out_p),
+                      f"yt_pass {tag}: differs from its plain version, rel "
+                      f"err {e:.3e}")
 
                 sk, fk, ck = gs_fixpoint(ops.yt_gs_pass, op, f3, offs,
                                          adjoint, tag)
@@ -370,7 +408,8 @@ def kernel_phase(dev, n):
                 check(fk == fp, f"yt_gs_pass {tag}: flags {fk} vs {fp}")
                 check(torch.equal(sk, sp), f"yt_gs_pass {tag}: fixpoints "
                       f"differ, rel err {rel_err(sk, sp):.3e}")
-                log(f"kernel check {tag}: yt_pass rel err {e:.3e}; "
+                log(f"kernel check {tag}: yt_pass bitwise equal (rel err "
+                    f"{e:.3e}); "
                     f"yt_gs_pass fixpoint bitwise equal after {len(fk)} "
                     f"pairs, tile {ck['tile'][0]}x{ck['tile'][1]} x "
                     f"{ck['tiles']}, {ck['pc']} integrands a launch, "
@@ -478,12 +517,57 @@ def slice_phase(dev, n):
             "intres": r, "q_basins": q_raw, "iattr": np.asarray(res.iattr)}
 
 
+def time_yt_pass(op, offs, R, fp, dt, plain=False):
+    """yt_pass on the integrands fp (s = fp / 2) in dtype dt: bitwise
+    against its plain version, its time beside the bytes bound and one
+    torch.sparse.addmm(f, R, s) on the same operator in CSR form (R from
+    flux_csr; operands laid out (N, P) before the timing); with `plain`,
+    the plain version's time too. Returns the record."""
+    import torch
+
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    P, N, K = fp.shape[0], fp[0].numel(), len(offs)
+    ff, ss = fp.to(dt), (fp * 0.5).to(dt)
+    k = ops.yt_pass(op, ss, ff, offs=offs)
+    p = ops.yt_pass_plain(op, ss, ff, offs=offs)
+    err = rel_err(k, p)
+    tag = f"yt_pass {str(dt)[6:]} P={P} K={K} N={N}"
+    check(torch.equal(k, p), f"{tag}: differs from its plain version, rel "
+          f"err {err:.3e}")
+    r = dict(max_abs_err=float((k - p).abs().max()))
+    del p
+    fN = ff.reshape(P, N).T.contiguous()
+    sN = ss.reshape(P, N).T.contiguous()
+    r["library_rel_err"] = rel_err(torch.sparse.addmm(fN, R, sN).T,
+                                   k.reshape(P, N))
+    check(r["library_rel_err"] <= (1e-13 if dt == torch.float64 else 1e-6),
+          f"{tag}: torch.sparse.addmm differs, rel err "
+          f"{r['library_rel_err']:.3e}")
+    del k
+    r["ms"] = cuda_ms(lambda: ops.yt_pass(op, ss, ff, offs=offs), 20)
+    r["library_ms"] = cuda_ms(lambda: torch.sparse.addmm(fN, R, sN), 20)
+    r["bound_ms"] = (K + 3 * P) * N * dt.itemsize / HBM_BYTES_PER_S * 1e3
+    if plain:
+        r["plain_ms"] = cuda_ms(
+            lambda: ops.yt_pass_plain(op, ss, ff, offs=offs), 5)
+    log(f"{tag}: bitwise equal to its plain version (rel err {err:.3e}); "
+        f"kernel {r['ms']:.4f} ms ({100 * r['bound_ms'] / r['ms']:.1f} % of "
+        f"the {r['bound_ms']:.4f} ms bytes bound), torch.sparse.addmm "
+        f"{r['library_ms']:.4f} ms (rel err {r['library_rel_err']:.3e})"
+        + (f", plain {r['plain_ms']:.4f} ms" if plain else ""))
+    return r
+
+
 def main_shape_phase(sl):
     """Each kernel against its plain version at the slice's shapes, and
     its time there beside the plain version's and the bytes bound."""
+    import numpy as np
     import torch
 
     from critic2_tpu_torch.analysis import yt
+    from critic2_tpu_torch.crystal.cell import m_x2c_from_cellpar
+    from critic2_tpu_torch.crystal.crystal import Crystal, Species
     from critic2_tpu_torch.ops import yt_pass as ops
 
     res, f3 = sl["res"], sl["f3"]
@@ -494,25 +578,42 @@ def main_shape_phase(sl):
     K = len(offs)
     out = {}
 
-    # yt_pass as the slice calls it: f64 residual, shifted f64 chi
-    s1 = f3 * 0.5
-    k = ops.yt_pass(chi64, s1, f3, offs=offs)
-    p = ops.yt_pass_plain(chi64, s1, f3, offs=offs)
-    err = float((k - p).abs().max())
-    check(err <= 1e-13 * float(p.abs().max()), f"yt_pass err {err:.3e}")
-    ms = {}
-    plain = {}
-    for dt in (torch.float32, torch.float64):
-        op, ss, ff = chi64.to(dt), s1.to(dt), f3.to(dt)
-        ms[dt] = cuda_ms(lambda: ops.yt_pass(op, ss, ff, offs=offs), 20)
-        plain[dt] = cuda_ms(lambda: ops.yt_pass_plain(op, ss, ff, offs=offs),
-                            5)
-        log(f"yt_pass {str(dt)[6:]} P={P} K={K} N={N}: kernel "
-            f"{ms[dt]:.4f} ms, plain {plain[dt]:.4f} ms, bytes bound "
-            f"{(K + 3 * P) * N * dt.itemsize / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    # yt_pass as the slice calls it (f64 residual, shifted f64 chi), at
+    # P = 2, at P = 1 and at multipoles' chunk of P = 8, in f64 and f32;
+    # then at K = 14 on a triclinic lattice's flux at the same grid
+    stacks = {2: f3, 1: f3[1:], 8: torch.cat([f3 * (1 + q) for q in
+                                               range(4)])}
+    rec = {}
+    for dt in (torch.float64, torch.float32):
+        op = chi64.to(dt)
+        R = flux_csr(op, offs)
+        for P_, fp in stacks.items():
+            rec[f"{str(dt)[6:]}_P{P_}"] = time_yt_pass(op, offs, R, fp, dt,
+                                                        plain=P_ == 2)
+        del R
+    c = Crystal(m_x2c=m_x2c_from_cellpar([8.0, 7.0, 6.5], [75, 80, 70]),
+                x_frac=np.array([[0.25, 0.25, 0.25], [0.75, 0.7, 0.6]]),
+                species_of=np.array([0, 0]), species=[Species("C", 6)])
+    rho = torch.as_tensor(density(c, res.shape, np.random.default_rng(7)),
+                          device=f3.device)
+    offs14, wts = yt._grid_ws_neighbors(c, rho.shape)
+    offs14 = tuple(tuple(int(v) for v in o) for o in offs14)
+    chi14, _ = yt._flux_tensors(rho, wts, offs14)
+    check(len(offs14) == 14, f"triclinic lattice: K = {len(offs14)}")
+    op = yt._shifted(chi14, offs14, torch.float64)
+    del chi14
+    fp = torch.stack([torch.ones_like(rho), rho])
+    rec["float64_P2_K14"] = time_yt_pass(op, offs14, flux_csr(op, offs14),
+                                         fp, torch.float64)
+    del op, fp, rho
+    m2 = rec["float64_P2"]
     out["yt_pass"] = dict(
-        max_abs_err=err, ms=ms[torch.float64], plain_ms=plain[torch.float64],
-        bound_ms=(K + 3 * P) * N * 8 / HBM_BYTES_PER_S * 1e3)
+        max_abs_err=m2["max_abs_err"], ms=m2["ms"],
+        plain_ms=m2["plain_ms"], bound_ms=m2["bound_ms"],
+        library_ms=m2["library_ms"],
+        extra={f"{key}_{name}": r[key] for name, r in rec.items()
+               for key in ("ms", "bound_ms", "library_ms")})
+    torch.cuda.empty_cache()
 
     # yt_gs_pass as the slice calls it: f32, adjoint, first pair from f
     f32 = f3.to(torch.float32)
@@ -890,7 +991,7 @@ def autocp_phase(s):
     log(f"autocp default on the card vs device='cpu' ({t_cpu:.3f} s there): "
         f"same types and multiplicities, {len(got['typ'])} CPs, positions "
         f"within {dmax:.3e} bohr")
-    return out, lists["default"]
+    return out, lists
 
 
 def nci_phase(s):
@@ -977,7 +1078,8 @@ def grid_phase(sl, profile):
     ops.reset_launches()
     out = {"interp": interp_phase(s.ref.grid.f)}
     torch.cuda.empty_cache()
-    out["autocp"], sl["cpl"] = autocp_phase(s)
+    out["autocp"], lists = autocp_phase(s)
+    sl["cpl"], sl["cpl_heavy"] = lists["default"], lists["heavy"]
     out["nci"] = nci_phase(s)
     log(f"grid path: CUDA kernel launches {dict(ops.launches)} (no kernel "
         "of the port lies on this path)")
@@ -1088,10 +1190,12 @@ def multipoles_phase(sl):
     (p, ), t_plain = wall_s(lambda: (ops.yt_pass_plain(chi64, s1, f64,
                                                        offs=offs), ))
     e = rel_err(k, p)
-    check(e <= 1e-13, f"yt_pass P=9 on the multipole integrands: {e:.3e}")
+    check(torch.equal(k, p), "yt_pass P=9 on the multipole integrands: "
+          f"differs from its plain version, rel err {e:.3e}")
     out["yt_pass_p9_ms"] = cuda_ms(
         lambda: ops.yt_pass(chi64, s1, f64, offs=offs), 5)
-    log(f"yt_pass float64 P=9 on the multipole integrands: rel err {e:.3e} "
+    log(f"yt_pass float64 P=9 on the multipole integrands: bitwise equal, "
+        f"rel err {e:.3e} "
         f"against the plain version ({t_plain * 1e3:.1f} ms there), kernel "
         f"{out['yt_pass_p9_ms']:.4f} ms")
     del s1, k, p
@@ -1830,21 +1934,21 @@ def qtree_phase(sl, dev):
     s = sl["system"]
     stats = {}
     cnt, restore = counting_attempts()
-    # phase 14 traces the first N_TRACE colour seeds again: keep them
+    # phase 14 traces every colour seed again: keep them
     tr = sl["qtree_trace"] = {}
     traced = qmod.trace_paths
 
     def recording(fn, x0, **kw):
-        if len(tr.get("seeds", ())) < N_TRACE:
-            x = x0.cpu().numpy()
-            if not tr:
-                tr.update(seeds=x[:N_TRACE], targets=kw["targets"],
-                          tgt_ids=np.tile(np.arange(s.crystal.ncel),
-                                          len(kw["targets"])
-                                          // s.crystal.ncel),
-                          rt=np.asarray(kw["rterm"]), mstep=kw["mstep"])
-            elif np.array_equal(np.asarray(kw["rterm"]), tr["rt"]):
-                tr["seeds"] = np.concatenate([tr["seeds"], x])[:N_TRACE]
+        x = x0.cpu().numpy()
+        if not tr:
+            tr.update(seeds=[x], targets=kw["targets"],
+                      tgt_ids=np.tile(np.arange(s.crystal.ncel),
+                                      len(kw["targets"]) // s.crystal.ncel),
+                      rt=np.asarray(kw["rterm"]), mstep=kw["mstep"])
+        else:
+            check(np.array_equal(np.asarray(kw["rterm"]), tr["rt"]),
+                  "qtree traced with two capture radii")
+            tr["seeds"].append(x)
         return traced(fn, x0, **kw)
 
     qmod.trace_paths = recording
@@ -1854,8 +1958,9 @@ def qtree_phase(sl, dev):
     finally:
         restore()
         qmod.trace_paths = traced
-    check(len(tr["seeds"]) == N_TRACE, f"qtree traced {len(tr['seeds'])} "
-          f"seeds, fewer than {N_TRACE}")
+    tr["seeds"] = np.concatenate(tr["seeds"])
+    check(len(tr["seeds"]) == r.ntraced, f"qtree traced "
+          f"{len(tr['seeds'])} seeds, ntraced {r.ntraced}")
     q_yt = sum(row.pop for row in sl["intres"].rows)
     dq = abs(float(r.pops.sum()) - q_yt)
     check(np.isfinite(r.pops).all() and (r.pops > 0).all()
@@ -3652,7 +3757,6 @@ def parallel_cli_phase(sl, dev, card):
 
 
 # ---------------------------------------------------------------- phase 14
-N_TRACE = 2048                 # path-colour seeds taken from the qtree run
 N_GTO = 16384                  # GTO points of the 8x8x6 tile
 
 
@@ -3717,9 +3821,9 @@ def native_yt_leg(sl, g, offs, wts):
 
 
 def native_cp_leg(s, cpl, card_s, g):
-    """The grid phase's default CP list against the sequential AUTO
-    drain from the same WS seeds, and each CP re-converged by a damped
-    host Newton on the native tricubic."""
+    """The grid phase's heavy CP list (WS seeds at depth 2) against the
+    sequential AUTO drain from the same seeds, and each CP re-converged
+    by a damped host Newton on the native tricubic."""
     import numpy as np
 
     from critic2_tpu_torch import native
@@ -3727,7 +3831,10 @@ def native_cp_leg(s, cpl, card_s, g):
 
     c = s.crystal
     m = np.asarray(c.m_x2c)
-    xs = np.mod(gen_seeds(c, [Seed(typ="ws")], device=s.device), 1.0)
+    xs = np.mod(gen_seeds(c, [Seed(typ="ws", depth=2)], device=s.device),
+                1.0)
+    ngen = len(xs)
+    check(ngen == 39312, f"{ngen} heavy WS seeds generated, not 39,312")
     xs = np.unique(np.round(xs, 10), axis=0)
     (xn, sn), t = wall_s(lambda: native.auto_drain(g, m, xs))
     # the card enters the nuclei at the atoms and drops Newton's maxima
@@ -3774,14 +3881,16 @@ def native_cp_leg(s, cpl, card_s, g):
     shift = float(np.linalg.norm(dx @ m.T, axis=1).max())
     check(shift <= 1e-6, f"CPs re-converged on the native tricubic move "
           f"{shift:.3e} bohr")
-    log(f"native AUTO from the same {len(xs)} WS seeds: {len(xn)} CPs off "
+    log(f"native AUTO from the same {ngen} heavy WS seeds ({len(xs)} "
+        f"distinct): {len(xn)} CPs off "
         f"the nuclei ({int(nucl.sum())} maxima at them), each an image of "
         f"one of the card's {noff} nonequivalent CPs off the nuclei ({nimg} "
         f"in the cell) of its signature within {dpos:.3e} bohr (bar 1e-6), "
         f"every one reached; host Newton on the native tricubic moves the "
         f"card's {len(cpl.cps)} CPs {shift:.3e} bohr (bar 1e-6); card "
         f"autocp {card_s:.3f} s, sequential drain {t:.3f} s")
-    return {"card_s": card_s, "host_s": t, "ncp_native": len(xn),
+    return {"card_s": card_s, "host_s": t, "seeds": ngen,
+            "seeds_distinct": len(xs), "ncp_native": len(xn),
             "native_nuclear_maxima": int(nucl.sum()), "ncp_cell": nimg,
             "nonequivalent": noff,
             "dpos_bohr": dpos, "reconverge_bohr": shift}
@@ -3840,8 +3949,10 @@ def native_nci_leg(s, g):
 
 
 def native_path_leg(s, tr, g):
-    """trace_paths colours of the qtree phase's first 2,048 seeds against
-    the sequential tracer, the same targets and capture radii."""
+    """trace_paths colours of every seed the qtree phase traced against
+    the sequential tracer, the same targets and capture radii; then every
+    seed moved 1e-8 bohr along +-x, y and z, on the card and in the
+    reference, which marks the seeds on a separatrix."""
     import numpy as np
     import torch
 
@@ -3855,49 +3966,63 @@ def native_path_leg(s, tr, g):
     def card(x):
         """The card's colours by the reference tracer's rule: the
         captured target's id; a gradient-zero end takes the nearest
-        target within 0.5 bohr."""
-        xf, st, ti, _, _ = trace_paths(
-            fn, torch.as_tensor(x, dtype=torch.float64, device=s.device),
-            iup=1, targets=tgt, rterm=rt, mstep=tr["mstep"])
-        st, ti, xf = st.cpu().numpy(), ti.cpu().numpy(), xf.cpu().numpy()
-        col = np.where((st == 0) & (ti >= 0), ids[np.clip(ti, 0, None)], -1)
-        for i in np.flatnonzero(st == 1):
-            d = np.linalg.norm(tgt - xf[i], axis=1)
-            if d.min() < 0.5:
-                col[i] = ids[int(d.argmin())]
-        return col
+        target within 0.5 bohr. In blocks of 2^16 lanes, as qtree
+        traces."""
+        cols = []
+        for lo in range(0, len(x), 1 << 16):
+            xf, st, ti, _, _ = trace_paths(
+                fn, torch.as_tensor(x[lo:lo + (1 << 16)],
+                                    dtype=torch.float64, device=s.device),
+                iup=1, targets=tgt, rterm=rt, mstep=tr["mstep"])
+            st, ti, xf = st.cpu().numpy(), ti.cpu().numpy(), xf.cpu().numpy()
+            col = np.where((st == 0) & (ti >= 0), ids[np.clip(ti, 0, None)],
+                           -1)
+            for i in np.flatnonzero(st == 1):
+                d = np.linalg.norm(tgt - xf[i], axis=1)
+                if d.min() < 0.5:
+                    col[i] = ids[int(d.argmin())]
+            cols.append(col)
+        return np.concatenate(cols)
 
     def ref(x):
         return native.trace_colors(g, m, x, tgt, ids, rt,
                                    mstep=tr["mstep"])
 
+    n = len(seeds)
     col, tc = wall_s(lambda: card(seeds))
     (cn, nev), t = wall_s(lambda: ref(seeds))
     bad = np.flatnonzero(col != cn)
     # a seed on a separatrix: moved 1e-8 bohr along an axis, it changes
     # colour on the card or in the reference; there either answer is right
     shift = 1e-8 * np.concatenate([np.eye(3), -np.eye(3)])
-    px = (seeds[bad][:, None, :] + shift[None]).reshape(-1, 3)
-    pc = card(px).reshape(len(bad), 6) if len(bad) else None
-    pn = ref(px)[0].reshape(len(bad), 6) if len(bad) else None
-    ties = 0
-    for j, i in enumerate(bad):
-        tie = bool((pc[j] != col[i]).any() or (pn[j] != cn[i]).any())
-        ties += tie
+    px = (seeds[:, None, :] + shift[None]).reshape(-1, 3)
+    pc, tcs = wall_s(lambda: card(px).reshape(n, 6))
+    (pn, _), ts = wall_s(lambda: ref(px))
+    pn = pn.reshape(n, 6)
+    sep_card = (pc != col[:, None]).any(axis=1)
+    sep_ref = (pn != cn[:, None]).any(axis=1)
+    sep = sep_card | sep_ref
+    for i in bad:
         log(f"  path colour differs: seed {seeds[i].tolist()} card {col[i]} "
             f"native {cn[i]}; moved 1e-8 bohr along +-x, y, z: card "
-            f"{pc[j].tolist()}, native {pn[j].tolist()}"
-            + (" (a separatrix)" if tie else ""))
-    check(len(bad) - ties <= 0.001 * len(seeds), f"{len(bad) - ties} of "
-          f"{len(seeds)} path colours off a separatrix differ from the "
-          "sequential tracer's")
-    log(f"native path colours, {len(seeds)} qtree seeds: {len(bad)} differ "
-        f"({100 * len(bad) / len(seeds):.3f} %), {ties} of them on a "
-        f"separatrix (bar 0.1 % off one), {int((cn < 0).sum())} uncoloured; "
-        f"card trace_paths {tc:.3f} s, sequential tracer {t:.3f} s ({nev} "
-        "evaluations)")
-    return {"card_s": tc, "host_s": t, "differ": len(bad),
-            "separatrix": ties, "nevals": nev}
+            f"{pc[i].tolist()}, native {pn[i].tolist()}"
+            + (" (a separatrix)" if sep[i] else ""))
+    ties = int(sep[bad].sum())
+    check(len(bad) - ties <= 0.001 * n, f"{len(bad) - ties} of {n} path "
+          "colours off a separatrix differ from the sequential tracer's")
+    log(f"native path colours, all {n} qtree seeds: {len(bad)} differ "
+        f"({100 * len(bad) / n:.3f} %), {ties} of them on a separatrix (bar "
+        f"0.1 % off one), {int((cn < 0).sum())} uncoloured; on a separatrix "
+        f"{int(sep.sum())} of all {n} seeds ({100 * sep.mean():.3f} %: card "
+        f"{int(sep_card.sum())}, reference {int(sep_ref.sum())}); card "
+        f"trace_paths {tc:.3f} s, sequential tracer {t:.3f} s ({nev} "
+        f"evaluations); the {6 * n} moved seeds card {tcs:.3f} s, "
+        f"reference {ts:.3f} s")
+    return {"card_s": tc, "host_s": t, "seeds": n, "differ": len(bad),
+            "separatrix_of_differing": ties, "separatrix": int(sep.sum()),
+            "separatrix_card": int(sep_card.sum()),
+            "separatrix_reference": int(sep_ref.sum()), "nevals": nev,
+            "moved_card_s": tcs, "moved_host_s": ts}
 
 
 def native_gto_leg(wf, dev):
@@ -4001,8 +4126,8 @@ def native_phase(sl, grid_out, wf, dev, card):
     g = gd.cpu().numpy()
     offs, wts = _grid_ws_neighbors(s.crystal, g.shape)
     out = {"yt": native_yt_leg(sl, g, offs, wts)}
-    out["cps"] = native_cp_leg(s, sl["cpl"],
-                               grid_out["autocp"]["default"]["autocp_s"], g)
+    out["cps"] = native_cp_leg(s, sl["cpl_heavy"],
+                               grid_out["autocp"]["heavy"]["autocp_s"], g)
     out["tricubic"] = native_interp_leg(gd, g)
     out["nci"] = native_nci_leg(s, g)
     out["paths"] = native_path_leg(s, sl["qtree_trace"], g)
@@ -4151,7 +4276,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": sl["launches"][name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
+            "bound_by": "bytes", "library_ms": m.get("library_ms"),
             "launches_multipoles": mp["launches"][name],
             "launches_quickstart": qs["launches"][name],
             "launches_expressions": ex["launches"][name],

@@ -236,11 +236,14 @@ def yt_pass(chiP, s, f3, *, offs, adjoint: bool = True):
     if s.device.type == "cpu":
         return yt_pass_plain(chiP, s, f3, offs=offs, adjoint=adjoint)
     _check("yt_pass", chiP, s, f3, offs)
+    P, n1, n2, n3 = s.shape
+    if n1 > 65535 or n1 * n2 * n3 >= 2**31:
+        raise ValueError("yt_pass: the kernel takes n1 <= 65535 and fewer "
+                         f"than 2^31 points an integrand, got {s.shape}")
     lib = _ext.load("yt_pass")
     fn = lib.yt_pass_f32 if s.dtype == torch.float32 else lib.yt_pass_f64
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _IP, _P]
     fn.restype = _I
-    P, n1, n2, n3 = s.shape
     disp = _disp(offs, adjoint)
     out = torch.empty_like(s)
     with torch.cuda.device(s.device):

@@ -28,25 +28,25 @@ CELLS = {"cubic": ([8.0, 8.0, 8.0], [90, 90, 90]),         # K = 6
 SHAPE = (10, 9, 8)
 
 
-def _flux(lattice, seed=5):
-    """(offs, chi (K,)+SHAPE f64 numpy, f3 (2,)+SHAPE) for a noisy
+def _flux(lattice, seed=5, shape=SHAPE):
+    """(offs, chi (K,)+shape f64 numpy, f3 (2,)+shape) for a noisy
     two-Gaussian density on the given lattice."""
     m = m_x2c_from_cellpar(*CELLS[lattice])
     c = crystal_from_arrays(m, [[0.25, 0.25, 0.25], [0.75, 0.7, 0.6]],
                             [0, 0], [("C", 6)])
-    g = np.stack(np.meshgrid(*[np.arange(s) / s for s in SHAPE],
+    g = np.stack(np.meshgrid(*[np.arange(s) / s for s in shape],
                              indexing="ij"), -1)
-    rho = np.zeros(SHAPE)
+    rho = np.zeros(shape)
     for site, amp in zip(c.x_frac, (1.0, 0.8)):
         d = g - site
         d -= np.rint(d)
         rho += amp * np.exp(-((d @ m.T) ** 2).sum(-1))
     rng = np.random.default_rng(seed)
-    rho += 1e-3 * rng.random(SHAPE)
-    offs_np, wts = tyt._grid_ws_neighbors(c, SHAPE)
+    rho += 1e-3 * rng.random(shape)
+    offs_np, wts = tyt._grid_ws_neighbors(c, shape)
     offs = tuple(tuple(int(v) for v in o) for o in offs_np)
     chi, _ = tyt._flux_tensors(torch.as_tensor(rho), wts, offs)
-    f3 = np.stack([np.ones(SHAPE), rho])
+    f3 = np.stack([np.ones(shape), rho])
     return offs, chi.numpy(), f3
 
 
@@ -147,6 +147,105 @@ def test_yt_gs_pass_one_sweep_semantics():
             acc = acc + op[k, i] * torch.roll(src[:, j % n1],
                                               (-o[1], -o[2]), (1, 2))
         torch.testing.assert_close(out[:, i], acc, rtol=1e-13, atol=1e-13)
+
+
+# ----------------------------------------------------------------------
+# the yt_pass kernel's addressing, and its library yardstick
+# ----------------------------------------------------------------------
+CUBE = (12, 12, 12)
+# displacements longer than the (3, 2, 5) grid's axes
+WIDE = ((3, 0, -4), (-5, 2, 1), (0, -7, 6))
+
+
+@pytest.fixture(scope="module")
+def chip_smoke():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pass_input(case, shape, P, dtype, adjoint):
+    """(offs, operand, s, f) of a P-integrand pass: the flux of a noisy
+    density on a lattice of CELLS, or random chi on WIDE displacements."""
+    rng = np.random.default_rng(P)
+    if case == "wide":
+        offs = WIDE
+        chi = rng.random((len(WIDE),) + shape)
+        f3 = rng.random((2,) + shape)
+    else:
+        offs, chi, f3 = _flux(case, shape=shape)
+        assert len(offs) == (6 if case == "cubic" else 14)
+    tdt = getattr(torch, dtype)
+    f = torch.as_tensor(np.concatenate([f3, rng.random((P,) + shape)])[:P],
+                        dtype=tdt)
+    s = torch.as_tensor(rng.random((P,) + shape), dtype=tdt)
+    return offs, _operand(chi, offs, adjoint, tdt), s, f
+
+
+def _kernel_addressing(chiP, s, f3, offs, adjoint):
+    """out = f + R s by the CUDA kernel's addressing, emulated: each
+    displacement reduced to [0, n) on its axis, a neighbour index wrapped
+    by one compare and subtract, the neighbour's flat index a plane base
+    plus an in-plane offset, the same K indices for every integrand, the
+    terms added in the order k."""
+    P, n1, n2, n3 = s.shape
+    n = (n1, n2, n3)
+    i, j, l = torch.meshgrid(*[torch.arange(v) for v in n], indexing="ij")
+    sf = s.reshape(P, -1)
+    acc = f3.reshape(P, -1)
+    for k, d in enumerate(ops._disp(offs, adjoint)):
+        ii, jj, ll = ((a + (v % m + m) % m) for a, v, m in
+                      zip((i, j, l), d, n))
+        ii, jj, ll = (torch.where(a >= m, a - m, a)
+                      for a, m in zip((ii, jj, ll), n))
+        nb = (ii * (n2 * n3) + (jj * n3 + ll)).reshape(-1)
+        acc = acc + chiP[k].reshape(-1) * sf[:, nb]
+    return acc.reshape(s.shape)
+
+
+@pytest.mark.parametrize("case", ["cubic", "triclinic", "wide"])
+@pytest.mark.parametrize("shape", [SHAPE, (3, 2, 5)])
+@pytest.mark.parametrize("P", [1, 9])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("adjoint", [True, False])
+def test_kernel_addressing_gives_the_plain_pass_bitwise(case, shape, P,
+                                                         dtype, adjoint):
+    offs, op, s, f = _pass_input(case, shape, P, dtype, adjoint)
+    assert torch.equal(_kernel_addressing(op, s, f, offs, adjoint),
+                       ops.yt_pass_plain(op, s, f, offs=offs,
+                                         adjoint=adjoint))
+
+
+@pytest.mark.parametrize("shape", [SHAPE, CUBE])
+@pytest.mark.parametrize("lattice", list(CELLS))
+@pytest.mark.parametrize("P", [1, 2, 9])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("adjoint", [True, False])
+def test_flux_csr_product_is_the_plain_pass(chip_smoke, shape, lattice, P,
+                                            dtype, adjoint):
+    offs, op, s, f = _pass_input(lattice, shape, P, dtype, adjoint)
+    N, K = int(np.prod(shape)), len(offs)
+    R = chip_smoke.flux_csr(op, offs, adjoint)
+    assert R.layout == torch.sparse_csr and R.shape == (N, N)
+    assert R.crow_indices().dtype == R.col_indices().dtype == torch.int32
+    col = R.col_indices().reshape(N, K)
+    assert bool((col[:, 1:] > col[:, :-1]).all())    # sorted, distinct
+    out = torch.sparse.addmm(f.reshape(P, N).T, R, s.reshape(P, N).T)
+    plain = ops.yt_pass_plain(op, s, f, offs=offs, adjoint=adjoint)
+    # the CSR product sums the K terms in column order and adds f last;
+    # float32 rounds each of its K + 1 sums at 6e-8
+    rtol = 1e-13 if dtype == "float64" else 1e-6
+    ref = plain.reshape(P, N).T
+    assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
+    # the plain pass takes each integrand on its own
+    assert torch.equal(plain, torch.cat([
+        ops.yt_pass_plain(op, s[p:p + 1], f[p:p + 1], offs=offs,
+                          adjoint=adjoint) for p in range(P)]))
 
 
 def test_wrappers_reject_mismatched_input():
