@@ -1,0 +1,8 @@
+"""device_idle_pct: share of the traced window in which no kernel or copy
+ran on the card (the union of the profiler's device intervals)."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.device:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
