@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import FDTYPE
+from ..utils import trace
 from .bader import bader_integrate
 from .yt import yt_integrate
 
@@ -118,111 +119,116 @@ def intgrid(system, method: str = "yt", ratom: float = 1.0,
     weights are built and solved slab-parallel on the mesh's devices
     (parallel.yt_sharded); identical weights.
     """
-    if method not in ("yt", "bader"):
-        raise ValueError(f"unknown integration method {method}")
-    f = system.ref
-    c = system.crystal
-    if f.type == "grid":
-        rho = f.grid.f
-        shape = tuple(int(s) for s in rho.shape)
-        env = f.coreenv
-        if env is not None:
-            rho = rho + _rasterize_env(c, env, shape, block=block)
-    else:
-        shape = tuple(grid_shape or (64, 64, 64))
-        rho = _rasterize_field(f, shape, block=block)
-
-    if method == "yt" and mesh is not None:
-        from ..parallel.yt_sharded import yt_integrate_sharded
-
-        res = yt_integrate_sharded(mesh, c, rho, result=True)
-    elif method == "yt":
-        res = yt_integrate(c, rho)
-    else:
-        res = bader_integrate(c, rho, block=max(block, 1 << 16),
-                              method=bader_method)
-
-    dev = rho.device
-    # registered INTEGRABLE expressions evaluate on the basin grid nodes
-    # (reference intgrid_fields, src/integration@proc.f90:949-1178)
-    if system.integrables:
-        from ..arithmetic import compile_expr
-
-        fields = dict(fields or {})
-        N = int(np.prod(shape))
-        for item in system.integrables:
-            # entries are expression strings, or (expr, label) pairs
-            # from INTEGRABLE ... NAME (reference propty NAME option)
-            expr, label = item if isinstance(item, tuple) else (item, item)
-            fn = compile_expr(expr, system)
-            out = torch.empty(N, dtype=rho.dtype, device=dev)
-            for lo in range(0, N, block):
-                hi = min(N, lo + block)
-                out[lo:hi] = fn(_grid_points(c, shape, lo, hi, rho.dtype,
-                                             dev))
-            fields[label] = out.reshape(shape)
-
-    npts = float(np.prod(shape))
-    scale = c.volume / npts
-    # one batched adjoint solve for every integrand (volume, charge, extras)
-    fnames = list(fields) if fields else []
-    stack = torch.stack(
-        [torch.ones(int(npts), dtype=rho.dtype, device=dev),
-         rho.reshape(-1)]
-        + [torch.as_tensor(fields[n], dtype=rho.dtype,
-                           device=dev).reshape(-1) for n in fnames])
-    qall = res.integrate(stack) * scale
-    vol, pop = qall[0], qall[1]
-    extras = {name: qall[2 + i] for i, name in enumerate(fnames)}
-
-    if noatoms:
-        iat = np.full(res.nattr, -1, dtype=int)
-    else:
-        iat = _match_attractors(c, res.xattr, ratom if nnm else 1e40)
-
-    # DISCARD: attractors where the expression is non-zero are dropped
-    # with their basin's charge and volume (reference bas%expr,
-    # src/yt@proc.f90:160-166)
-    dropped = np.zeros(res.nattr, dtype=bool)
-    if discard:
-        xc_attr = np.asarray(res.xattr).reshape(-1, 3) @ \
-            np.asarray(c.m_x2c).T
-        vals = system.eval_expr(discard, xc_attr).cpu().numpy()
-        dropped = np.abs(vals.reshape(-1)) > 1e-30
-
-    # merge attractors mapped to the same atom (one row per attractor-atom)
-    rows = []
-    used = {}
-    attr_map = []
-    for a in range(res.nattr):
-        if dropped[a]:
-            attr_map.append(-1)
-            continue
-        key = ("atom", iat[a]) if iat[a] >= 0 else ("nnm", a)
-        if key in used:
-            r = rows[used[key]]
-            r.volume += float(vol[a])
-            r.pop += float(pop[a])
-            for name in extras:
-                r.extra[name] += float(extras[name][a])
-            attr_map.append(used[key])
-            continue
-        if iat[a] >= 0:
-            nm = c.species[c.species_of[iat[a]]].name
-            xf = np.asarray(c.x_frac[iat[a]])
+    with trace.span("intgrid"):
+        if method not in ("yt", "bader"):
+            raise ValueError(f"unknown integration method {method}")
+        f = system.ref
+        c = system.crystal
+        if f.type == "grid":
+            rho = f.grid.f
+            shape = tuple(int(s) for s in rho.shape)
+            env = f.coreenv
+            if env is not None:
+                rho = rho + _rasterize_env(c, env, shape, block=block)
         else:
-            nm = "nnm"
-            xf = res.xattr[a]
-        rows.append(BasinRow(
-            idx=len(rows) + 1, name=nm, atom=int(iat[a]), xfrac=xf,
-            volume=float(vol[a]), pop=float(pop[a]),
-            extra={k: float(v[a]) for k, v in extras.items()}))
-        used[key] = len(rows) - 1
-        attr_map.append(used[key])
+            shape = tuple(grid_shape or (64, 64, 64))
+            rho = _rasterize_field(f, shape, block=block)
 
-    return IntegrationResult(method=method, rows=rows, nattr_raw=res.nattr,
-                             decomp=res, attr_map=attr_map,
-                             grid_shape=shape, rho=rho)
+        if method == "yt" and mesh is not None:
+            from ..parallel.yt_sharded import yt_integrate_sharded
+
+            res = yt_integrate_sharded(mesh, c, rho, result=True)
+        elif method == "yt":
+            res = yt_integrate(c, rho)
+        else:
+            res = bader_integrate(c, rho, block=max(block, 1 << 16),
+                                  method=bader_method)
+
+        dev = rho.device
+        # registered INTEGRABLE expressions evaluate on the basin grid nodes
+        # (reference intgrid_fields, src/integration@proc.f90:949-1178)
+        if system.integrables:
+            from ..arithmetic import compile_expr
+
+            fields = dict(fields or {})
+            N = int(np.prod(shape))
+            for item in system.integrables:
+                # entries are expression strings, or (expr, label) pairs
+                # from INTEGRABLE ... NAME (reference propty NAME option)
+                expr, label = item if isinstance(item, tuple) else (item, item)
+                fn = compile_expr(expr, system)
+                out = torch.empty(N, dtype=rho.dtype, device=dev)
+                for lo in range(0, N, block):
+                    hi = min(N, lo + block)
+                    out[lo:hi] = fn(_grid_points(c, shape, lo, hi, rho.dtype,
+                                                 dev))
+                fields[label] = out.reshape(shape)
+
+        npts = float(np.prod(shape))
+        scale = c.volume / npts
+        # one batched adjoint solve for every integrand (volume, charge,
+        # extras)
+        fnames = list(fields) if fields else []
+        stack = torch.stack(
+            [torch.ones(int(npts), dtype=rho.dtype, device=dev),
+             rho.reshape(-1)]
+            + [torch.as_tensor(fields[n], dtype=rho.dtype,
+                               device=dev).reshape(-1) for n in fnames])
+        qall = res.integrate(stack) * scale
+        vol, pop = qall[0], qall[1]
+        extras = {name: qall[2 + i] for i, name in enumerate(fnames)}
+
+        with trace.span("intgrid.rows"):
+            if noatoms:
+                iat = np.full(res.nattr, -1, dtype=int)
+            else:
+                iat = _match_attractors(c, res.xattr, ratom if nnm else 1e40)
+
+            # DISCARD: attractors where the expression is non-zero are dropped
+            # with their basin's charge and volume (reference bas%expr,
+            # src/yt@proc.f90:160-166)
+            dropped = np.zeros(res.nattr, dtype=bool)
+            if discard:
+                xc_attr = np.asarray(res.xattr).reshape(-1, 3) @ \
+                    np.asarray(c.m_x2c).T
+                trace.count("host_syncs")
+                vals = system.eval_expr(discard, xc_attr).cpu().numpy()
+                dropped = np.abs(vals.reshape(-1)) > 1e-30
+
+            # merge attractors mapped to the same atom (one row per
+            # attractor-atom)
+            rows = []
+            used = {}
+            attr_map = []
+            for a in range(res.nattr):
+                if dropped[a]:
+                    attr_map.append(-1)
+                    continue
+                key = ("atom", iat[a]) if iat[a] >= 0 else ("nnm", a)
+                if key in used:
+                    r = rows[used[key]]
+                    r.volume += float(vol[a])
+                    r.pop += float(pop[a])
+                    for name in extras:
+                        r.extra[name] += float(extras[name][a])
+                    attr_map.append(used[key])
+                    continue
+                if iat[a] >= 0:
+                    nm = c.species[c.species_of[iat[a]]].name
+                    xf = np.asarray(c.x_frac[iat[a]])
+                else:
+                    nm = "nnm"
+                    xf = res.xattr[a]
+                rows.append(BasinRow(
+                    idx=len(rows) + 1, name=nm, atom=int(iat[a]), xfrac=xf,
+                    volume=float(vol[a]), pop=float(pop[a]),
+                    extra={k: float(v[a]) for k, v in extras.items()}))
+                used[key] = len(rows) - 1
+                attr_map.append(used[key])
+
+        return IntegrationResult(method=method, rows=rows, nattr_raw=res.nattr,
+                                 decomp=res, attr_map=attr_map,
+                                 grid_shape=shape, rho=rho)
 
 
 def _multipole_integrands(crystal, shape, rho_flat, center, lmax: int):

@@ -37,6 +37,7 @@ import torch
 
 from ..config import FDTYPE, resolve_device
 from ..ops.yt_pass import yt_gs_pass, yt_pass
+from ..utils import trace
 
 __all__ = ["yt_integrate", "yt_f32_guarded", "YTResult"]
 
@@ -137,6 +138,7 @@ def _xla_sweep(chiP, f3, offs, adjoint=True):
     s = f3
     while True:
         s_new = f3 + _apply_R(chiP, s, offs, adjoint=adjoint)
+        trace.count("host_syncs")
         if torch.equal(s_new, s):
             return s_new
         s = s_new
@@ -163,10 +165,12 @@ def _kernel_sweep(chiP32, f3, offs, adjoint):
     s, flag = _gs_pairs(chiP32, f3, f3, offs, adjoint, npair=4)
     npairs = 4
     maxpair = sum(f3.shape[1:]) + 16
-    while int(flag) != 0 and npairs < maxpair:
+    while True:
+        trace.count("host_syncs")
+        if int(flag) == 0 or npairs >= maxpair:
+            return s
         s, flag = _gs_pairs(chiP32, s, f3, offs, adjoint, npair=2)
         npairs += 2
-    return s
 
 
 def _solve_sweep(chiP, chiP32, chiR, f3, offs, adjoint=True, nrefine=1,
@@ -179,30 +183,36 @@ def _solve_sweep(chiP, chiP32, chiR, f3, offs, adjoint=True, nrefine=1,
     evaluated by yt_pass with chiR (the f64 flux, shifted for the adjoint).
     The optimistic path queues solve + residual + correction solve and
     reads both convergence flags in ONE sync; when a flag trips it falls
-    back to the flag-stepped loop."""
-    if chiP32 is None:
-        return _xla_sweep(chiP, f3, offs, adjoint=adjoint)
-    if nrefine == 1:
-        f32a = f3.to(torch.float32)
-        s1, flag1 = _gs_pairs(chiP32, f32a, f32a, offs, adjoint, npair=4)
-        s1 = s1.to(f3.dtype)
-        r = yt_pass(chiR, s1, f3, offs=offs, adjoint=adjoint) - s1
-        r32 = r.to(torch.float32)
-        e, flag2 = _gs_pairs(chiP32, r32, r32, offs, adjoint, npair=4)
-        out = s1 + e.to(f3.dtype)
-        if int((flag1 != 0) | (flag2 != 0)) == 0:   # one host sync
-            return out
-    s = _kernel_sweep(chiP32, f3.to(torch.float32), offs,
-                      adjoint).to(f3.dtype)
-    for i in range(nrefine):
-        r = yt_pass(chiR, s, f3, offs=offs, adjoint=adjoint) - s
-        if i > 0:
-            fscale = float(f3.abs().max()) + 1e-300
-            if float(r.abs().max()) <= rtol * fscale:
-                break
-        s = s + _kernel_sweep(chiP32, r.to(torch.float32), offs,
+    back to the flag-stepped loop (one `yt.fallbacks` count a trip)."""
+    trace.count("yt.solves")
+    with trace.span("yt.solve"):
+        if chiP32 is None:
+            return _xla_sweep(chiP, f3, offs, adjoint=adjoint)
+        if nrefine == 1:
+            f32a = f3.to(torch.float32)
+            s1, flag1 = _gs_pairs(chiP32, f32a, f32a, offs, adjoint, npair=4)
+            s1 = s1.to(f3.dtype)
+            r = yt_pass(chiR, s1, f3, offs=offs, adjoint=adjoint) - s1
+            r32 = r.to(torch.float32)
+            e, flag2 = _gs_pairs(chiP32, r32, r32, offs, adjoint, npair=4)
+            out = s1 + e.to(f3.dtype)
+            trace.count("host_syncs")
+            if int((flag1 != 0) | (flag2 != 0)) == 0:   # one host sync
+                return out
+            trace.count("yt.fallbacks")
+        with trace.span("yt.fallback"):
+            s = _kernel_sweep(chiP32, f3.to(torch.float32), offs,
                               adjoint).to(f3.dtype)
-    return s
+            for i in range(nrefine):
+                r = yt_pass(chiR, s, f3, offs=offs, adjoint=adjoint) - s
+                if i > 0:
+                    trace.count("host_syncs", 2)
+                    fscale = float(f3.abs().max()) + 1e-300
+                    if float(r.abs().max()) <= rtol * fscale:
+                        break
+                s = s + _kernel_sweep(chiP32, r.to(torch.float32), offs,
+                                      adjoint).to(f3.dtype)
+            return s
 
 
 @dataclass
@@ -240,12 +250,15 @@ class YTResult:
         return self._chiP32s, self._chiP64s
 
     def _index(self, flat):
-        """Grid index tensors (i1, i2, i3) of flat indices, on the device."""
+        """Grid index tensors (i1, i2, i3) of flat indices, on the device
+        (three copies from pageable host memory, each a host sync)."""
+        trace.count("host_syncs", 3)
         return tuple(torch.as_tensor(i, device=self._chiP.device)
                      for i in np.unravel_index(flat, self.shape))
 
     def _solve(self, f3, adjoint):
-        chi32, chiR = self._chis(adjoint)
+        with trace.span("yt.operands"):
+            chi32, chiR = self._chis(adjoint)
         return _solve_sweep(self._chiP, chi32, chiR, f3, self._offs,
                             adjoint=adjoint)
 
@@ -285,6 +298,7 @@ class YTResult:
             lab = torch.where(upd, (b0 + carg).to(torch.int32), lab)
             wmax = torch.where(upd, cmax, wmax)
             frac |= ((w > 1e-15) & (w < 1.0 - 1e-12)).any(0)
+        trace.count("host_syncs", 2)
         self._labels = lab.cpu().numpy()
         self._nboundary = int(frac.sum())
 
@@ -299,12 +313,15 @@ class YTResult:
         if not f3.is_floating_point():
             f3 = f3.to(self._chiP.dtype)
         s = self._solve(f3, adjoint=True)
-        i1, i2, i3 = self._index(self.iattr)
-        q = s[:, i1, i2, i3].cpu().numpy()
+        with trace.span("yt.readback"):
+            i1, i2, i3 = self._index(self.iattr)
+            trace.count("host_syncs")
+            q = s[:, i1, i2, i3].cpu().numpy()
         return q[0] if single else q
 
     def weights(self, b: int) -> np.ndarray:
         """Full weight grid of basin b (dense; for WCUBE-style output)."""
+        trace.count("host_syncs")
         return self._basin_chunk(int(b), 1)[0].cpu().numpy()
 
     def basin_support(self, a: int, tol: float = 1e-15):
@@ -332,19 +349,24 @@ def yt_integrate(crystal, rho, block: int | None = None, *, device=None):
     accepted and ignored, as the JAX package ignores it."""
     rho3 = _as_grid(rho, device)
     shape = tuple(int(s) for s in rho3.shape)
-    offs_np, wts_np = _grid_ws_neighbors(crystal, shape)
+    with trace.span("yt.neighbours"):
+        offs_np, wts_np = _grid_ws_neighbors(crystal, shape)
     offs = tuple(tuple(int(v) for v in o) for o in offs_np)
 
-    chiP, is_attr = _flux_tensors(rho3, wts_np, offs)
-    iattr_d = torch.nonzero(is_attr.reshape(-1)).reshape(-1)
-    rho_at_d = rho3.reshape(-1)[iattr_d]
-    iattr = iattr_d.cpu().numpy()
-    rho_at = rho_at_d.cpu().numpy()
-    nattr = len(iattr)
-    iattr = iattr[np.lexsort((iattr, -rho_at))]
-
-    i1, i2, i3 = np.unravel_index(iattr, shape)
-    xattr = np.stack([i1 / shape[0], i2 / shape[1], i3 / shape[2]], axis=1)
+    with trace.span("yt.flux"):
+        chiP, is_attr = _flux_tensors(rho3, wts_np, offs)
+        # nonzero's size and the two readbacks: three host syncs
+        trace.count("host_syncs", 3)
+        iattr_d = torch.nonzero(is_attr.reshape(-1)).reshape(-1)
+        rho_at_d = rho3.reshape(-1)[iattr_d]
+        iattr = iattr_d.cpu().numpy()
+        rho_at = rho_at_d.cpu().numpy()
+    with trace.span("yt.order"):
+        nattr = len(iattr)
+        iattr = iattr[np.lexsort((iattr, -rho_at))]
+        i1, i2, i3 = np.unravel_index(iattr, shape)
+        xattr = np.stack([i1 / shape[0], i2 / shape[1], i3 / shape[2]],
+                         axis=1)
     return YTResult(crystal=crystal, shape=shape, nattr=nattr, xattr=xattr,
                     iattr=iattr, _chiP=chiP, _offs=offs)
 

@@ -104,15 +104,17 @@ class Repl:
         rest = toks[1:]
         handler = getattr(self, f"cmd_{kw}", None)
         if handler is not None:
-            from .utils import runlog
+            from .utils import runlog, trace
 
             if runlog.sink():
                 t0 = time.perf_counter()
-                try:
-                    out = handler(rest, lines)
-                finally:
-                    runlog.log(kw, wall_s=time.perf_counter() - t0,
-                               args=rest, nwarns=self.nwarns)
+                with trace.recording() as rec:
+                    try:
+                        out = handler(rest, lines)
+                    finally:
+                        runlog.log(kw, wall_s=time.perf_counter() - t0,
+                                   args=rest, nwarns=self.nwarns,
+                                   **rec.summary())
                 return out
             return handler(rest, lines)
         if "=" in line and not line.lower().startswith(tuple(

@@ -20,9 +20,12 @@ raises if it cannot) and computes its plain PyTorch version for tensors on
 the CPU; nothing else picks between them. `launches` counts kernel
 launches per wrapper. Both kernels take float32 and float64.
 
-`gs_counts()` reads the schedule counters of the last yt_gs_pass call
-(grid barriers and block 0's local iterations of the kernel; in-plane
-Jacobi iterations of the plain version); nothing reads them unless asked.
+`gs_counts()` reads the schedule counters of one call, the last
+yt_gs_pass call (grid barriers and block 0's local iterations of the
+kernel; in-plane Jacobi iterations of the plain version); nothing reads
+them unless asked. Each kernel call also hands its grid-barrier counter
+to the program's record (utils/trace.py) as `yt_gs_pass.grid_barriers`,
+which sums it across calls only when the record is read.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from . import _ext
 
 __all__ = ["yt_pass", "yt_gs_pass", "yt_pass_plain", "yt_gs_pass_plain",
@@ -313,6 +317,7 @@ def yt_gs_pass(chiP, s, f3, *, offs, adjoint: bool = True,
                     "shared memory each) exceed the co-resident blocks")
             _raise_on("yt_gs_pass", err)
             launches["yt_gs_pass"] += 1
+    trace.count_device("yt_gs_pass.grid_barriers", counts, 0)
     _last_counts.clear()
     _last_counts["kernel"] = counts
     _last_counts["plan"] = dict(tile=(plan["ty"], plan["tz"]),

@@ -6,6 +6,8 @@ machine-readable record of what each driver did and how long it took.
 Here every dispatched CLI keyword (and any code that calls `log()`
 directly) appends ONE JSON line {"ts", "kw", "wall_s", ...} to the file
 named by the CRITIC2_RUNLOG environment variable or `enable(path)`.
+A keyword's line also carries what the program recorded while it ran
+(utils/trace.py): "spans" {name: [count, seconds]} and "counters".
 Disabled (zero-cost) when no sink is configured.
 """
 from __future__ import annotations

@@ -127,6 +127,38 @@ def test_main_cpu_returns_zero(poscar, tmp_path, capsys, monkeypatch):
     assert "SUM(1) =" in out and "ended (0 warnings)" in out
 
 
+def test_runlog_line_carries_the_keywords_record(poscar, tmp_path,
+                                                monkeypatch):
+    """With CRITIC2_RUNLOG set, each keyword runs inside its own
+    trace.recording(): the YT keyword's line (YT is the keyword that
+    runs intgrid on a grid) carries the totals of the YT path's spans and
+    its counters, a keyword that runs no span carries none, and the
+    process's default record stays empty."""
+    import json
+
+    from critic2_tpu_torch.utils import trace
+
+    trace.reset()
+    log = tmp_path / "run.jsonl"
+    monkeypatch.setenv("CRITIC2_RUNLOG", str(log))
+    _, r = _run(PORT_REPL, f'crystal {poscar}\nload as "$0" 16 16 16\n'
+                'yt\n')
+    assert r.nwarns == 0
+    recs = {x["kw"]: x for x in map(json.loads,
+                                    log.read_text().splitlines())}
+    assert list(recs) == ["crystal", "load", "yt"]
+    yt = recs["yt"]
+    assert set(yt["spans"]) == {"intgrid", "yt.neighbours", "yt.flux",
+                                "yt.order", "yt.operands", "yt.solve",
+                                "yt.readback", "intgrid.rows"}
+    n, seconds = yt["spans"]["intgrid"]
+    assert n == 1 and 0 < seconds <= yt["wall_s"] + 1e-4
+    assert yt["counters"]["yt.solves"] == 1
+    assert yt["counters"]["host_syncs"] > 7
+    assert recs["crystal"]["spans"] == {}
+    assert trace.read() == {"spans": [], "counters": {}, "dropped": 0}
+
+
 def _cps(cpl):
     return [(cp.typ, cp.name, cp.mult, bool(cp.isnuc), float(cp.f),
              float(cp.gfmod), float(cp.del2f), tuple(np.asarray(cp.x)),

@@ -139,8 +139,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "import critic2_tpu_torch.parallel.grid_ops\n"
             "import critic2_tpu_torch.parallel.yt_sharded\n"
             "import critic2_tpu_torch.utils.chk\n"
-            "import critic2_tpu_torch.utils.clock\n"
             "import critic2_tpu_torch.utils.runlog\n"
+            "import critic2_tpu_torch.utils.trace\n"
             "import critic2_tpu_torch.cli\n"
             "import critic2_tpu_torch.native\n"
             "bad = sorted(m for m in sys.modules\n"
