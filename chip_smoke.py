@@ -15,8 +15,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      yt_gs_pass's tiles: P=1, P=8 forward (as labels calls it), P=12 (more
      integrands than one launch holds, so the wrapper launches chunks), a
      40x50x37 grid whose tiles are ragged on both plane axes, a smooth
-     single-maximum density whose in-plane chains cross many tiles, and
-     an 8x264x264 grid whose tiles exceed a block's threads.
+     single-maximum density whose in-plane chains cross many tiles,
+     8x264x264 grids (cubic and triclinic) whose tiles hold 2 points a
+     thread, and anthracene's grid lattice (K=8) at 8x270x504, whose
+     45x23 tiles hold 3 points a thread in float32 and stay in shared
+     memory in float64 (P=2, both directions; points a thread, grid
+     barriers and block 0's local iterations printed).
      yt_pass must match bitwise (its relative error printed); yt_gs_pass
      sweep pairs are iterated to a zero flag and the fixpoints must be
      bitwise equal and every flag the same;
@@ -352,11 +356,16 @@ def kernel_phase(dev, n):
 
     rng = np.random.default_rng(7)
     lattices = {"cubic": ([8.0, 8.0, 8.0], [90, 90, 90]),
-                "triclinic": ([8.0, 7.0, 6.5], [75, 80, 70])}
+                "triclinic": ([8.0, 7.0, 6.5], [75, 80, 70]),
+                # anthracene's cell (X23, P2_1/a) with a cut to 8 of its
+                # 384 planes: the grid lattice of its 384 x 270 x 504
+                # grid, K = 8, 4 of them in-plane
+                "monoclinic": ([15.901 * 8 / 384, 11.320, 20.967],
+                               [90, 125.293, 90])}
     f32, f64 = torch.float32, torch.float64
     # (lattice, shape, P, dtypes, directions, density noise, sites)
     cases = [(lat, (n,) * 3, 2, (f32, f64), (True, False), 1e-3, 2)
-             for lat in lattices]
+             for lat in ("cubic", "triclinic")]
     cases += [
         # labels' forward solve of a chunk of 8 basins
         ("cubic", (n,) * 3, 8, (f32,), (False,), 1e-3, 2),
@@ -369,8 +378,12 @@ def kernel_phase(dev, n):
         ("cubic", (40, 50, 37), 2, (f32, f64), (True,), 1e-3, 2),
         # one smooth maximum: in-plane chains cross many tiles
         ("cubic", (n,) * 3, 2, (f32,), (True, False), 0.0, 1),
-        # tiles of more points than a block has threads (the general path)
-        ("cubic", (8, 264, 264), 2, (f32,), (True,), 1e-3, 2)]
+        # tiles of 2 points a thread, held in registers, ninp 4 and 6
+        ("cubic", (8, 264, 264), 2, (f32,), (True,), 1e-3, 2),
+        ("triclinic", (8, 264, 264), 2, (f32,), (True,), 1e-3, 2),
+        # anthracene's plane: 45 x 23 tiles, 3 points a thread
+        ("monoclinic", (8, 270, 504), 2, (f32, f64), (True, False), 1e-3,
+         2)]
     for lname, shape, P, dtypes, dirs, noise, nsite in cases:
         c = Crystal(m_x2c=m_x2c_from_cellpar(*lattices[lname]),
                     x_frac=np.array([[0.25, 0.25, 0.25], [0.75, 0.7, 0.6]]),
@@ -413,15 +426,21 @@ def kernel_phase(dev, n):
                     f"yt_gs_pass fixpoint bitwise equal after {len(fk)} "
                     f"pairs, tile {ck['tile'][0]}x{ck['tile'][1]} x "
                     f"{ck['tiles']}, {ck['pc']} integrands a launch, "
+                    f"{ck['ppt']} points a thread in registers, "
                     f"first sweep grid barriers {ck['grid_barriers']} "
-                    f"(global-Jacobi schedule {cp['old_grid_barriers']})")
+                    f"(global-Jacobi schedule {cp['old_grid_barriers']}), "
+                    f"block 0's local iterations "
+                    f"{ck['local_iters_block0']}")
                 ty, tz = ck["tile"]
                 if shape == (40, 50, 37):
                     check(shape[1] % ty and shape[2] % tz,
                           f"{tag}: tile {ty}x{tz} divides the plane")
-                if shape == (8, 264, 264):
-                    check(not ck["res"], f"{tag}: tile {ty}x{tz} holds its "
-                          "points in registers")
+                if shape[1:] in ((264, 264), (270, 504)):
+                    # float64 keeps such tiles in shared memory
+                    want = 0 if dt == f64 else 2 if shape[1] == 264 else 3
+                    check(ck["res"] == (want > 0) and ck["ppt"] == want,
+                          f"{tag}: tile {ty}x{tz}, {ck['ppt']} points a "
+                          f"thread in registers, not {want}")
                 check((ck["pc"] < P) == (P > ops.GS_MAXP),
                       f"{tag}: {ck['pc']} integrands a launch")
     log(json.dumps({"kernels_checked": ["yt_pass", "yt_gs_pass"]}))

@@ -35,8 +35,9 @@
 //   * per plane, the block computes its tile's base from the cross-plane
 //     neighbours and loads the in-plane chi and the warm start, with a
 //     halo of width h (the largest in-plane |d1|, |d2|) in shared memory;
-//     when the tile has at most one point per thread, the point's chi,
-//     base and current value stay in that thread's registers;
+//     when the tile has at most one point per thread, or up to
+//     YT_GS_MAX_PPT in float at P <= 2, each point's chi, base and
+//     current value stay in its thread's registers;
 //   * rounds of block-Jacobi over the tiles: in a round each block iterates
 //     its tile by Jacobi in shared memory, behind __syncthreads_or, until
 //     it is bitwise stationary with its halo held fixed or has taken
@@ -83,6 +84,9 @@ namespace cg = cooperative_groups;
 // analogue (PERF.md).
 #define YT_GS_LOCAL_CAP 12
 #define YT_GS_EDGE (1 << 30)    // bit of a tile point's offset entry
+// the most tile points a thread holds in registers (float, P <= 2): 4 x
+// 512 points a tile, 132 tiles, cover a 512^2 plane
+#define YT_GS_MAX_PPT 4
 
 struct GsDisp {
     int ncross;                 // cross-plane neighbours, summation order
@@ -93,28 +97,34 @@ struct GsDisp {
     int di[YT_MAXK][2];
 };
 
-// PM: the largest P this instance serves; the P integrands of a point live
-// in registers, so one point's neighbour loads serve all of them. NI: the
-// number of in-plane neighbours, or YT_MAXK for any count up to it; with
-// NI fixed the neighbour loop unrolls and a point's loads issue together.
-// RES: the tile has at most one point per thread, whose in-plane chi, base
-// and current value then stay in registers for the whole plane; a local
-// iteration reads only the neighbours from shared memory. Larger tiles
-// keep them in shared memory and loop over the points.
-template <typename T, int PM, int NI, bool RES>
-__global__ void __launch_bounds__(YT_GS_THREADS)
-yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
-             const T* __restrict__ f, T* out, int* flag, T* xb0, T* xb1,
-             int* chg, long long* counts, int P, int n1, int n2, int n3,
-             int backward, int h, int TY, int TZ, GsDisp g) {
+// The sweep. PM: the largest P this instance serves; the P integrands of a
+// point live in registers, so one point's neighbour loads serve all of
+// them. NI: the number of in-plane neighbours, or YT_MAXK for any count up
+// to it; with NI fixed the neighbour loop unrolls and a point's loads issue
+// together. PPT: the tile has at most PPT points per thread, whose
+// in-plane chi, base and current value (and, at PM = 2, offset) then stay
+// in that thread's registers for the whole plane, so a local iteration
+// reads only the neighbours from shared memory, and the PPT points' loads
+// issue together; PPT = 0 keeps chi and base in shared memory and loops
+// over the points.
+template <typename T, int PM, int NI, int PPT>
+__device__ __forceinline__ void yt_gs_sweep(
+    const T* __restrict__ chi, const T* __restrict__ s,
+    const T* __restrict__ f, T* out, int* flag, T* xb0, T* xb1, int* chg,
+    long long* counts, int P, int n1, int n2, int n3, int backward, int h,
+    int TY, int TZ, const GsDisp& g) {
     extern __shared__ __align__(16) unsigned char yt_smem[];
     __shared__ int nring;
+    constexpr int RP = PPT > 0 ? PPT : 1;   // register slots of a thread
+    // the points' lo_s entries in registers too, where the P <= 2 state
+    // leaves room (at PM = 8 they would push it out to spills)
+    constexpr bool HOLD_LO = PPT > 0 && PM <= 2;
 
     cg::grid_group grid = cg::this_grid();
     const int A = TY * TZ;                 // tile points
     const int Wz = TZ + 2 * h;             // halo'd row length
     const int W = (TY + 2 * h) * Wz;       // halo'd tile points
-    const int AS = RES ? 0 : A;            // points kept in shared memory
+    const int AS = PPT ? 0 : A;            // points kept in shared memory
     T* chi_s = (T*)yt_smem;                // ninp x AS
     T* base_s = chi_s + g.ninp * AS;       // P x AS
     T* ua = base_s + P * AS;               // P x W, two Jacobi buffers
@@ -141,14 +151,22 @@ yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
 #pragma unroll
     for (int c = 0; c < NI; ++c)
         doff[c] = c < ninp ? g.di[c][0] * Wz + g.di[c][1] : 0;
+    // a thread's tile points are l = tid + j * bd: PPT of them, unrolled
+    // (j indexes the registers), or the strided loop over the tile
+    int rlo[RP];                           // HOLD_LO: the points' lo_s
     if (tid == 0) nring = 0;
-    for (int l = tid; l < A; l += bd) {
+#pragma unroll
+    for (int j = 0, l = tid; PPT ? j < PPT : l < A; ++j, l += bd) {
+        if constexpr (HOLD_LO) rlo[j] = -1;
+        if (l >= A) continue;
         const int ly = l / TZ;
         const int lz = l - ly * TZ;
         const bool in = ly < ny && lz < nz;
         const bool edge = ly < h || ly >= ny - h || lz < h || lz >= nz - h;
-        lo_s[l] = in ? ((ly + h) * Wz + lz + h) | (edge ? YT_GS_EDGE : 0)
-                     : -1;
+        const int lo = in ? ((ly + h) * Wz + lz + h) | (edge ? YT_GS_EDGE : 0)
+                          : -1;
+        lo_s[l] = lo;
+        if constexpr (HOLD_LO) rlo[j] = lo;
         yz_s[l] = (y0 + ly) * n3 + z0 + lz;
     }
     __syncthreads();
@@ -166,7 +184,7 @@ yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
     unsigned G = 0;             // rounds so far, the same in every block
     long long nlocal = 0;       // this block's local iterations
     int changed = 0;
-    T rch[NI], rbs[PM], rown[PM];          // RES: the thread's point
+    T rch[RP][NI], rbs[RP][PM], rown[RP][PM];    // PPT: the thread's points
 
     for (int step = 0; step < n1; ++step) {
         const int i = backward ? n1 - 1 - step : step;
@@ -177,8 +195,9 @@ yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
         T* nxt = ub;
 
         // 1. the tile's in-plane chi, base and warm start
-        for (int l = tid; l < A; l += bd) {
-            const int lo = lo_s[l];
+#pragma unroll
+        for (int j = 0, l = tid; PPT ? j < PPT : l < A; ++j, l += bd) {
+            const int lo = HOLD_LO ? rlo[j] : l < A ? lo_s[l] : -1;
             if (lo < 0) continue;
             const int o = lo & (YT_GS_EDGE - 1);
             const int yz = yz_s[l];
@@ -188,7 +207,7 @@ yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
             for (int c = 0; c < NI; ++c) {
                 if (c < ninp) {
                     const T v = chi[g.ki[c] * N + ioff + yz];
-                    if constexpr (RES) rch[c] = v;
+                    if constexpr (PPT > 0) rch[j][c] = v;
                     else chi_s[c * A + l] = v;
                 }
             }
@@ -225,9 +244,9 @@ yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
                 if (p < P) {
                     const T u = g.ninp ? s[p * N + ioff + yz] : acc[p];
                     cur[p * W + o] = u;
-                    if constexpr (RES) {
-                        rbs[p] = acc[p];
-                        rown[p] = u;
+                    if constexpr (PPT > 0) {
+                        rbs[j][p] = acc[p];
+                        rown[j][p] = u;
                     } else {
                         base_s[p * A + l] = acc[p];
                     }
@@ -268,19 +287,21 @@ yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
             if (g.ninp > 0) {
                 for (int n = 0;; ++n) {
                     int any = 0;
-                    for (int l = tid; l < A; l += bd) {
-                        const int lo = lo_s[l];
+#pragma unroll
+                    for (int j = 0, l = tid; PPT ? j < PPT : l < A;
+                         ++j, l += bd) {
+                        const int lo = HOLD_LO ? rlo[j] : l < A ? lo_s[l] : -1;
                         if (lo < 0) continue;
                         const int o = lo & (YT_GS_EDGE - 1);
                         T ch[NI], un[PM];
 #pragma unroll
                         for (int c = 0; c < NI; ++c)
                             if (c < ninp)
-                                ch[c] = RES ? rch[c] : chi_s[c * A + l];
+                                ch[c] = PPT ? rch[j][c] : chi_s[c * A + l];
 #pragma unroll
                         for (int p = 0; p < PM; ++p)
                             if (p < P)
-                                un[p] = RES ? rbs[p] : base_s[p * A + l];
+                                un[p] = PPT ? rbs[j][p] : base_s[p * A + l];
 #pragma unroll
                         for (int c = 0; c < NI; ++c) {
                             if (c < ninp) {
@@ -295,9 +316,9 @@ yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
                         for (int p = 0; p < PM; ++p) {
                             if (p < P) {
                                 nxt[p * W + o] = un[p];
-                                const int d =
-                                    un[p] != (RES ? rown[p] : cur[p * W + o]);
-                                if constexpr (RES) rown[p] = un[p];
+                                const int d = un[p] != (PPT ? rown[j][p]
+                                                            : cur[p * W + o]);
+                                if constexpr (PPT > 0) rown[j][p] = un[p];
                                 any |= d;
                                 eany |= d && (lo & YT_GS_EDGE);
                             }
@@ -319,15 +340,16 @@ yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
 
             // publish the tile to buffer (G + 1) % 2
             T* pub = (G & 1) ? xb0 : xb1;
-            for (int l = tid; l < A; l += bd) {
-                const int lo = lo_s[l];
+#pragma unroll
+            for (int j = 0, l = tid; PPT ? j < PPT : l < A; ++j, l += bd) {
+                const int lo = HOLD_LO ? rlo[j] : l < A ? lo_s[l] : -1;
                 if (lo < 0) continue;
                 const int o = lo & (YT_GS_EDGE - 1);
 #pragma unroll
                 for (int p = 0; p < PM; ++p)
                     if (p < P)
                         pub[p * plane + yz_s[l]] =
-                            RES ? rown[p] : cur[p * W + o];
+                            PPT ? rown[j][p] : cur[p * W + o];
             }
             if (__syncthreads_or(eany) && tid == 0) atomicOr(chg + slot, 1);
             grid.sync();
@@ -341,15 +363,16 @@ yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
         }
 
         // 3. write the plane
-        for (int l = tid; l < A; l += bd) {
-            const int lo = lo_s[l];
+#pragma unroll
+        for (int j = 0, l = tid; PPT ? j < PPT : l < A; ++j, l += bd) {
+            const int lo = HOLD_LO ? rlo[j] : l < A ? lo_s[l] : -1;
             if (lo < 0) continue;
             const int o = lo & (YT_GS_EDGE - 1);
             const int64_t yz = ioff + yz_s[l];
 #pragma unroll
             for (int p = 0; p < PM; ++p) {
                 if (p < P) {
-                    const T u = RES ? rown[p] : cur[p * W + o];
+                    const T u = PPT ? rown[j][p] : cur[p * W + o];
                     out[p * N + yz] = u;
                     changed |= u != s[p * N + yz];
                 }
@@ -367,20 +390,59 @@ yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
     }
 }
 
+// The kernels. RES: at most one tile point per thread, held in registers
+// (else chi and base in shared memory); the instances with up to
+// YT_GS_MAX_PPT points a thread in registers add that count as a fifth
+// argument.
+template <typename T, int PM, int NI, bool RES>
+__global__ void __launch_bounds__(YT_GS_THREADS)
+yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
+             const T* __restrict__ f, T* out, int* flag, T* xb0, T* xb1,
+             int* chg, long long* counts, int P, int n1, int n2, int n3,
+             int backward, int h, int TY, int TZ, GsDisp g) {
+    yt_gs_sweep<T, PM, NI, RES ? 1 : 0>(chi, s, f, out, flag, xb0, xb1, chg,
+                                        counts, P, n1, n2, n3, backward, h,
+                                        TY, TZ, g);
+}
+
+template <typename T, int PM, int NI, bool RES, int PPT>
+__global__ void __launch_bounds__(YT_GS_THREADS)
+yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
+             const T* __restrict__ f, T* out, int* flag, T* xb0, T* xb1,
+             int* chg, long long* counts, int P, int n1, int n2, int n3,
+             int backward, int h, int TY, int TZ, GsDisp g) {
+    static_assert(RES && PPT > 1 && PPT <= YT_GS_MAX_PPT, "1 < PPT <= max");
+    yt_gs_sweep<T, PM, NI, PPT>(chi, s, f, out, flag, xb0, xb1, chg, counts,
+                                P, n1, n2, n3, backward, h, TY, TZ, g);
+}
+
 template <typename T>
 using GsKernel = void (*)(const T*, const T*, const T*, T*, int*, T*, T*,
                           int*, long long*, int, int, int, int, int, int,
                           int, int, GsDisp);
 
-// The instance for ninp in-plane neighbours: a lattice plane's are those
-// of its own 2-D lattice, 4 (cubic, K = 6) or 6 (triclinic, K = 14), and
-// these two have instances with register-held points; tiles of more
-// points than threads, and any other count, take the general one.
+// The instance for ninp in-plane neighbours and ppt register-held points a
+// thread (0: the tile in shared memory). A lattice plane's neighbours are
+// those of its own 2-D lattice, 4 (cubic, K = 6) or 6 (triclinic, K = 14),
+// and these two have register-held instances: one point a thread at both
+// widths, up to YT_GS_MAX_PPT in float at the charges' P <= 2 (at P <= 8,
+// or in double, the state of more than one point a thread spills out of
+// the 128 registers a thread has at 512 threads); any other count, and
+// larger tiles, take the general one.
 template <typename T, int PM>
-static GsKernel<T> pick(int ninp, bool res) {
-    if (res && ninp == 4) return yt_gs_kernel<T, PM, 4, true>;
-    if (res && ninp == 6) return yt_gs_kernel<T, PM, 6, true>;
-    return yt_gs_kernel<T, PM, YT_MAXK, false>;
+static GsKernel<T> pick(int ninp, int ppt) {
+    if (ppt == 1 && ninp == 4) return yt_gs_kernel<T, PM, 4, true>;
+    if (ppt == 1 && ninp == 6) return yt_gs_kernel<T, PM, 6, true>;
+    if constexpr (PM == 2 && sizeof(T) == 4) {
+        if (ppt == 2 && ninp == 4) return yt_gs_kernel<T, PM, 4, true, 2>;
+        if (ppt == 3 && ninp == 4) return yt_gs_kernel<T, PM, 4, true, 3>;
+        if (ppt == 4 && ninp == 4) return yt_gs_kernel<T, PM, 4, true, 4>;
+        if (ppt == 2 && ninp == 6) return yt_gs_kernel<T, PM, 6, true, 2>;
+        if (ppt == 3 && ninp == 6) return yt_gs_kernel<T, PM, 6, true, 3>;
+        if (ppt == 4 && ninp == 6) return yt_gs_kernel<T, PM, 6, true, 4>;
+    }
+    if (ppt == 0) return yt_gs_kernel<T, PM, YT_MAXK, false>;
+    return nullptr;
 }
 
 template <typename T>
@@ -388,7 +450,7 @@ static int launch(const void* chi, const void* s, const void* f, void* out,
                   void* flag, void* xbuf, void* chg, void* counts, int P,
                   int n1, int n2, int n3, int backward, int ncross,
                   const int* cross, int ninp, const int* inp, int h, int TY,
-                  int TZ, int res, int smem, void* stream) {
+                  int TZ, int ppt, int smem, void* stream) {
     GsDisp g;
     if (ncross < 0 || ninp < 0 || ncross + ninp > YT_MAXK || h < 0
         || TY < 1 || TZ < 1)
@@ -414,17 +476,20 @@ static int launch(const void* chi, const void* s, const void* f, void* out,
     // (unless in registers), two Jacobi buffers; int: the tile's tables
     const int64_t W = (int64_t)(TY + 2 * h) * (TZ + 2 * h);
     const int64_t A = (int64_t)TY * TZ;
-    if (res && (A > YT_GS_THREADS || (ninp != 4 && ninp != 6)))
+    if (ppt && (ppt != (A + YT_GS_THREADS - 1) / YT_GS_THREADS
+                || ppt > YT_GS_MAX_PPT
+                || (ppt > 1 && (P > 2 || sizeof(T) != 4))
+                || (ninp != 4 && ninp != 6)))
         return (int)cudaErrorInvalidValue;
-    const int64_t AS = res ? 0 : A;
+    const int64_t AS = ppt ? 0 : A;
     const int64_t need = sizeof(T) * (ninp * AS + P * AS + 2 * P * W)
                          + sizeof(int) * 2 * W;
     if (smem < need) return (int)cudaErrorInvalidValue;
     const int blocks = ((n2 + TY - 1) / TY) * ((n3 + TZ - 1) / TZ);
     // two register widths keep the build short: the charges' P = 2 and
     // labels' chunks of up to 8
-    GsKernel<T> kernel = P <= 2   ? pick<T, 2>(ninp, res)
-                         : P <= 8 ? pick<T, 8>(ninp, res)
+    GsKernel<T> kernel = P <= 2   ? pick<T, 2>(ninp, ppt)
+                         : P <= 8 ? pick<T, 8>(ninp, ppt)
                                   : nullptr;
     if (!kernel) return (int)cudaErrorInvalidValue;  // P > 8: chunked above
 
@@ -489,9 +554,12 @@ extern "C" int yt_gs_limits(int* out) {
 }
 
 // cross: ncross x (k, d0, d1, d2); inp: ninp x (k, d1, d2), both in the
-// summation order; h >= every in-plane |d1|, |d2|; (TY, TZ) the tile; res:
-// a tile point's state stays in registers (at most one point per thread,
-// ninp 4 or 6); smem: dynamic shared memory bytes, at least the layout's.
+// summation order; h >= every in-plane |d1|, |d2|; (TY, TZ) the tile; ppt:
+// tile points a thread holds in registers, ceil(TY * TZ / threads) (at
+// most YT_GS_MAX_PPT, above 1 only in float at P <= 2; ninp 4 or 6), or 0
+// for the
+// tile's state in shared memory; smem: dynamic shared memory bytes, at
+// least the layout's.
 // xbuf: 2 * P * n2 * n3 elements of T; chg: 3 int32 zeros; flag: 1 int32,
 // OR-ed (the caller zeroes it); counts: 2 int64, accumulated; P <= 8.
 #define YT_GS_ENTRY(NAME, T)                                                 \
@@ -500,10 +568,10 @@ extern "C" int yt_gs_limits(int* out) {
                         void* counts, int P, int n1, int n2, int n3,         \
                         int backward, int ncross, const int* cross,          \
                         int ninp, const int* inp, int h, int TY, int TZ,     \
-                        int res, int smem, void* stream) {                   \
+                        int ppt, int smem, void* stream) {                   \
         return launch<T>(chi, s, f, out, flag, xbuf, chg, counts, P, n1, n2, \
                          n3, backward, ncross, cross, ninp, inp, h, TY, TZ,  \
-                         res, smem, stream);                                 \
+                         ppt, smem, stream);                                 \
     }
 YT_GS_ENTRY(yt_gs_pass_f32, float)
 YT_GS_ENTRY(yt_gs_pass_f64, double)

@@ -13,7 +13,7 @@ replace the two Pallas kernels of critic2_tpu/ops/yt_pass.py:
   * yt_gs_pass (csrc/yt_gs_pass.cu): one plane-ordered Gauss-Seidel sweep
     with an exact in-plane solve, plus an int32 changed-anything flag. The
     kernel solves each plane by rounds of block-Jacobi over tiles resident
-    in shared memory; `gs_plan` chooses the tile.
+    in shared memory and registers; `gs_plan` chooses the tile.
 
 Each wrapper launches its CUDA kernel for tensors on a CUDA device (and
 raises if it cannot) and computes its plain PyTorch version for tensors on
@@ -25,7 +25,9 @@ yt_gs_pass call (grid barriers and block 0's local iterations of the
 kernel; in-plane Jacobi iterations of the plain version); nothing reads
 them unless asked. Each kernel call also hands its grid-barrier counter
 to the program's record (utils/trace.py) as `yt_gs_pass.grid_barriers`,
-which sums it across calls only when the record is read.
+which sums it across calls only when the record is read, and each launch
+whose threads hold more than one tile point in registers counts one
+`yt_gs_pass.multi_point_launches`.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ __all__ = ["yt_pass", "yt_gs_pass", "yt_pass_plain", "yt_gs_pass_plain",
 
 MAXK = 14
 GS_MAXP = 8            # integrands per yt_gs_pass launch (register-held)
+GS_MAX_PPT = 4         # tile points a thread holds in registers (f32, P <= 2)
 GS_MIN_TILE = 256      # tile points below which a block's threads idle
 launches = {"yt_pass": 0, "yt_gs_pass": 0}
 # last yt_gs_pass call: the kernel's int64 device counters, or the plain
@@ -59,8 +62,9 @@ def gs_counts() -> dict:
     After a kernel launch: grid_barriers (= tile rounds summed over
     planes: a round ends in the kernel's only grid barrier),
     local_iters_block0 (block 0's in-tile Jacobi iterations summed over
-    planes), and the plan: tile, tiles, pc (integrands per launch) and
-    res (a tile point's state held in registers).
+    planes), and the plan: tile, tiles, pc (integrands per launch), res
+    (the tile points' state held in registers) and ppt (points a thread
+    holds there, 0 without res).
     After the plain version: jacobi_iters (per plane, in sweep order) and
     old_grid_barriers, what the global-Jacobi kernel schedule paid for the
     same sweep (one barrier per in-plane iteration and one per plane)."""
@@ -159,13 +163,16 @@ def gs_plan(P, n2, n3, h, ninp, itemsize, nsm, smem_max, threads):
     then the longer rows (z is contiguous). A block keeps two halo'd
     Jacobi words per point and integrand and two int tables per halo'd
     point in shared memory. A point's in-plane chi, base and value stay
-    in registers (res) when the tile has at most `threads` points (the
-    kernel's block) and ninp is 4 or 6; else ninp chi words per point and
-    one base word per point and integrand go in shared memory too. When
-    the P integrands do not fit `smem_max` bytes together, or P exceeds
-    GS_MAXP, they go in chunks of `pc` (one launch each).
-    Returns dict(ty, tz, tiles, pc, res, smem); raises ValueError naming
-    the limit when even one integrand does not fit."""
+    in registers (res) when ninp is 4 or 6 and each of the kernel's
+    `threads` holds ppt = ceil(tile points / threads) of them: one at any
+    pc, up to GS_MAX_PPT in float32 at pc <= 2 (at wider pc, or in
+    float64, the kernel's registers would spill);
+    else ninp chi words per point and one base word per point and
+    integrand go in shared memory too (ppt 0). When the P integrands do
+    not fit `smem_max` bytes together, or P exceeds GS_MAXP, they go in
+    chunks of `pc` (one launch each).
+    Returns dict(ty, tz, tiles, pc, res, ppt, smem); raises ValueError
+    naming the limit when even one integrand does not fit."""
     target = max(1, min(nsm, -(-n2 * n3 // GS_MIN_TILE)))
     best = None
     for gy in range(1, min(n2, target) + 1):
@@ -177,14 +184,16 @@ def gs_plan(P, n2, n3, h, ninp, itemsize, nsm, smem_max, threads):
     _, ty, tz = best
     tiles = -(-n2 // ty) * -(-n3 // tz)
     area, halo = ty * tz, (ty + 2 * h) * (tz + 2 * h)
-    res = area <= threads and ninp in (4, 6)
-    held = 0 if res else area       # points with chi and base in smem
+    need = -(-area // threads)      # points a thread
     for pc in range(min(P, GS_MAXP), 0, -1):
+        res = ninp in (4, 6) and (need == 1 or (
+            need <= GS_MAX_PPT and pc <= 2 and itemsize == 4))
+        held = 0 if res else area   # points with chi and base in smem
         smem = (itemsize * (ninp * held + pc * held + 2 * pc * halo)
                 + 8 * halo)
         if smem <= smem_max:
             return dict(ty=ty, tz=tz, tiles=tiles, pc=pc, res=res,
-                        smem=smem)
+                        ppt=need if res else 0, smem=smem)
     raise ValueError(
         f"yt_gs_pass: a {ty}x{tz} tile (halo {h}, {ninp} in-plane "
         f"neighbours) needs {smem} bytes of shared memory for one "
@@ -308,7 +317,7 @@ def yt_gs_pass(chiP, s, f3, *, offs, adjoint: bool = True,
                      xbuf.data_ptr(), chg[j].data_ptr(), counts.data_ptr(),
                      min(pc, P - p0), n1, n2, n3, int(backward), len(cross),
                      cross_a, len(inplane), inp_a, h, plan["ty"],
-                     plan["tz"], int(plan["res"]), plan["smem"],
+                     plan["tz"], plan["ppt"], plan["smem"],
                      torch.cuda.current_stream().cuda_stream)
             if err == _COOP_TOO_LARGE:
                 raise RuntimeError(
@@ -317,11 +326,14 @@ def yt_gs_pass(chiP, s, f3, *, offs, adjoint: bool = True,
                     "shared memory each) exceed the co-resident blocks")
             _raise_on("yt_gs_pass", err)
             launches["yt_gs_pass"] += 1
+            if plan["ppt"] > 1:
+                trace.count("yt_gs_pass.multi_point_launches")
     trace.count_device("yt_gs_pass.grid_barriers", counts, 0)
     _last_counts.clear()
     _last_counts["kernel"] = counts
     _last_counts["plan"] = dict(tile=(plan["ty"], plan["tz"]),
-                                tiles=plan["tiles"], pc=pc, res=plan["res"])
+                                tiles=plan["tiles"], pc=pc, res=plan["res"],
+                                ppt=plan["ppt"])
     return out, flag
 
 

@@ -397,6 +397,8 @@ def test_gs_halo_covers_the_in_plane_neighbours(lattice):
 
 H100 = dict(nsm=132, smem_max=232448,
             threads=_kernel_define("YT_GS_THREADS"))
+# the most tile points a thread of the kernel holds in registers
+MAX_PPT = _kernel_define("YT_GS_MAX_PPT")
 
 
 @pytest.mark.parametrize("P, n2, n3, ninp, itemsize", [
@@ -406,7 +408,11 @@ H100 = dict(nsm=132, smem_max=232448,
     (8, 50, 37, 4, 8),        # ragged on both axes
     (8, 512, 512, 6, 4),      # the integrands go in chunks
     (1, 9, 8, 4, 8),
-    (12, 64, 64, 4, 4)])      # more integrands than one launch holds
+    (12, 64, 64, 4, 4),       # more integrands than one launch holds
+    (2, 270, 504, 4, 4),      # anthracene's plane: 3 points a thread
+    (2, 264, 264, 6, 4),      # 2 points a thread, ninp 6
+    (8, 270, 504, 4, 4),      # labels' chunk of 8 there: shared memory
+    (2, 270, 504, 4, 8)])     # float64 there: shared memory
 def test_gs_plan_fits_the_card(P, n2, n3, ninp, itemsize):
     plan = ops.gs_plan(P, n2, n3, 1, ninp, itemsize, **H100)
     ty, tz = plan["ty"], plan["tz"]
@@ -415,8 +421,13 @@ def test_gs_plan_fits_the_card(P, n2, n3, ninp, itemsize):
     # every tile holds at least one point: the grid covers the plane
     assert (gy - 1) * ty < n2 <= gy * ty and (gz - 1) * tz < n3 <= gz * tz
     assert 1 <= plan["pc"] <= min(P, ops.GS_MAXP)
-    # points in registers only where a block has a thread for each
-    assert plan["res"] == (ty * tz <= H100["threads"] and ninp in (4, 6))
+    # points in registers where a block's threads hold at most MAX_PPT of
+    # them a thread in float32 at a launch's P <= 2, or one a thread at
+    # any P
+    ppt = -(-ty * tz // H100["threads"])
+    assert plan["res"] == (ninp in (4, 6) and (
+        ppt == 1 or (ppt <= MAX_PPT and plan["pc"] <= 2 and itemsize == 4)))
+    assert plan["ppt"] == (ppt if plan["res"] else 0)
     held = 0 if plan["res"] else ty * tz
     assert plan["smem"] == itemsize * (
         ninp * held + plan["pc"] * (held + 2 * (ty + 2) * (tz + 2))
@@ -425,9 +436,35 @@ def test_gs_plan_fits_the_card(P, n2, n3, ninp, itemsize):
     if P * n2 * n3 >= 2 * 256 * 256:
         assert plan["tiles"] >= 120        # the card is filled
     if (n2, n3) == (256, 256) and itemsize == 4:
-        assert (ty, tz, plan["pc"]) == (16, 32, P)
+        assert (ty, tz, plan["pc"], plan["ppt"]) == (16, 32, P, 1)
     if (P, n2) in ((8, 512), (12, 64)):
         assert plan["pc"] < P              # launched in chunks
+    if (n2, n3) == (270, 504):
+        assert (ty, tz, plan["tiles"]) == (45, 23, 132)
+        assert plan["ppt"] == (3 if P <= 2 and itemsize == 4 else 0)
+    if (n2, n3) == (264, 264):
+        assert plan["res"] and plan["ppt"] == 2
+
+
+@pytest.mark.parametrize("ninp", [4, 6, 8])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_gs_plan_keeps_ppt_within_the_kernel(ninp, itemsize):
+    # every plan's ppt has a kernel instance: 1 at any P, up to the
+    # kernel's compile-time maximum in float32 at P <= 2, 0 for shared
+    # memory
+    assert ops.GS_MAX_PPT == MAX_PPT
+    for n in (8, 64, 200, 256, 264, 270, 300, 384, 504, 512, 640, 800):
+        for n2, n3 in ((n, n), (n, 504), (270, n)):
+            for P in (1, 2, 3, 8, 9):
+                try:
+                    plan = ops.gs_plan(P, n2, n3, 1, ninp, itemsize, **H100)
+                except ValueError:
+                    continue                # no tile fits shared memory
+                assert 0 <= plan["ppt"] <= MAX_PPT
+                assert plan["res"] == (plan["ppt"] > 0)
+                assert plan["ppt"] <= 1 or (plan["pc"] <= 2
+                                            and itemsize == 4)
+                assert plan["ppt"] == 0 or ninp in (4, 6)
 
 
 def test_gs_plan_raises_at_the_shared_memory_limit():
