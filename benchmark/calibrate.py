@@ -3,11 +3,12 @@
     python3 benchmark/calibrate.py --workload <cell> --seeds 1,2,... \
         --control-seeds 101,102,103
 
-In one process on one card: for every seed, the pool of densities that a
-run of that seed draws, one job of the program on each density and the
-cell's numbers against the plain reference (the lower readings); then,
-for every control seed, the reference in the precision below the one the
-configuration states put in the program's place (the upper readings).
+In one process on one card: for every seed, the pool of items that a
+run of that seed draws (the configuration's data model makes it), one
+job of the program on each item and the cell's numbers against the
+plain reference (the lower readings); then, for every control seed, the
+reference in the precision below the one the configuration states put
+in the program's place (the upper readings).
 Prints one JSON line per seed and a summary: the largest program reading
 and the smallest control reading of each number.
 """
@@ -22,13 +23,13 @@ sys.path.insert(0, ROOT)
 
 
 def readings(cell, ctx, pool, run_job):
-    """The cell's numbers over the densities of a pool, the worst of each."""
+    """The cell's numbers over the items of a pool, the worst of each."""
     import torch
 
     worst = {}
-    for rho in pool:
-        out = run_job(ctx, rho)
-        ans = cell.job.reference(ctx, rho, torch.float64)
+    for item in pool:
+        out = run_job(ctx, item)
+        ans = cell.job.reference(ctx, item, torch.float64)
         for k, v in cell.job.compare(ctx, out, ans).items():
             worst[k] = max(worst.get(k, float("-inf")), float(v))
         del out, ans
@@ -40,13 +41,13 @@ def readings(cell, ctx, pool, run_job):
 def calibrate(cell, seeds, control_seeds, device) -> dict:
     """Per seed, the cell's numbers of the program and of the control;
     returns the largest program and the smallest control reading of each."""
-    from benchmark.lib import density, harness
+    from benchmark.lib import harness
 
     ctx = harness.Context(cfg=cell.cfg, traffic=cell.traffic, device=device)
     npool = int(cell.traffic["pool"])
 
-    def control(ctx_, rho):
-        return cell.job.as_output(cell.job.reference(ctx_, rho,
+    def control(ctx_, item):
+        return cell.job.as_output(cell.job.reference(ctx_, item,
                                                      cell.job.CONTROL))
 
     summary = {"program": {}, "control": {}}
@@ -54,8 +55,8 @@ def calibrate(cell, seeds, control_seeds, device) -> dict:
                          ("control", control_seeds, control)):
         for seed in ss:
             t0 = time.perf_counter()
-            pool = density.make_pool(cell.cfg, seed, npool, device)
-            density.check_pool(cell.cfg, pool, seed)
+            pool = cell.data.make_pool(cell.cfg, seed, npool, device)
+            cell.data.check_pool(cell.cfg, pool, seed)
             r = readings(cell, ctx, pool, fn)
             del pool
             print(json.dumps({"side": side, "seed": seed, "numbers": r,

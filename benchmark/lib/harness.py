@@ -33,6 +33,8 @@ BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
 # top-level module names a run may not load
 FORBIDDEN = ("jax", "jaxlib", "flax", "critic2_tpu")
+# the program, which a data model may not load either
+PROGRAM = "critic2_tpu_torch"
 # a traced window lasts at most this long (a traffic file may set less,
 # "trace_seconds"), so its record stays small
 TRACE_SECONDS = 8.0
@@ -61,6 +63,25 @@ def forbidden_modules(modules=None) -> list:
                   & set(FORBIDDEN))
 
 
+def data_model(cfg: dict, bench_dir: str = BENCH_DIR):
+    """The module that makes the configuration's pool: lib/density.py for
+    two_gaussians, else data/<model>.py. Raises if the file is missing or
+    if loading it loads the program or a forbidden module."""
+    name = cfg["density"]["model"]
+    if name == "two_gaussians":
+        return density
+    path = os.path.join(bench_dir, "data", name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"data model {name!r} has no file {path}")
+    before = {m.split(".")[0] for m in sys.modules}
+    mod = load_module(path, "bench_data_" + name.replace(".", "_"))
+    new = {m.split(".")[0] for m in sys.modules} - before
+    bad = sorted(new & {*FORBIDDEN, PROGRAM})
+    if bad:
+        raise ImportError(f"data model {name!r} loads {bad}")
+    return mod
+
+
 @dataclass
 class Cell:
     """A cell with everything its files say."""
@@ -71,6 +92,7 @@ class Cell:
     limits: dict
     job: object
     metrics: dict           # name -> entry of BENCHMARK.json
+    data: object            # the configuration's data model
     bench_dir: str = BENCH_DIR
 
     @classmethod
@@ -91,13 +113,13 @@ class Cell:
                    for kind in ("end_to_end", "per_layer")
                    for m in spec[kind]
                    if name in m.get("workloads", [name])}
-        return cls(name=name, entry=w,
-                   cfg=load_json(os.path.join(bench_dir, "configs",
-                                              w["config"] + ".json")),
-                   traffic=traffic,
+        cfg = load_json(os.path.join(bench_dir, "configs",
+                                     w["config"] + ".json"))
+        return cls(name=name, entry=w, cfg=cfg, traffic=traffic,
                    limits=load_json(os.path.join(bench_dir, "limits",
                                                  name + ".json")),
-                   job=job, metrics=metrics, bench_dir=bench_dir)
+                   job=job, metrics=metrics,
+                   data=data_model(cfg, bench_dir), bench_dir=bench_dir)
 
 
 @dataclass
@@ -143,7 +165,7 @@ def _finite(v) -> float:
 
 def _keep_plan(cell, seed, npool, est_jobs):
     """Job indices whose outputs are kept for the check: every job, or, for
-    outputs too large to keep, one job per density drawn from the seed
+    outputs too large to keep, one job per pool item drawn from the seed
     among those the window should reach."""
     if cell.traffic.get("compare", "all") == "all":
         return None
@@ -155,7 +177,7 @@ def _keep_plan(cell, seed, npool, est_jobs):
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              device, t_start: float, run_job=None) -> dict:
     """Set up, warm up, measure one window, check the outputs; returns the
-    result line's dict. run_job(ctx, rho) replaces the job's run (the
+    result line's dict. run_job(ctx, item) replaces the job's run (the
     control and the fault tests put theirs in the program's place)."""
     import torch
 
@@ -165,10 +187,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     npool = int(cell.traffic["pool"])
     a = time.perf_counter()
     log(f"{cell.name} seed {seed}: imports and context {a - t_start:.3f} s")
-    pool = density.make_pool(cell.cfg, seed, npool, device)
+    pool = cell.data.make_pool(cell.cfg, seed, npool, device)
     _sync(device)
     b = time.perf_counter()
-    density.check_pool(cell.cfg, pool, seed)
+    cell.data.check_pool(cell.cfg, pool, seed)
     _sync(device)
     log(f"pool of {npool} {b - a:.3f} s, its checks "
         f"{time.perf_counter() - b:.3f} s")
@@ -215,7 +237,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     peak = (torch.cuda.max_memory_allocated(device)
             if torch.device(device).type == "cuda" else 0)
     c1 = counters()
-    # a sampled job the window did not reach: the last one of its density
+    # a sampled job the window did not reach: the last one of its item
     if keep is not None:
         have = {d for d, _ in kept.values()}
         for d, (j, out) in last.items():
@@ -234,7 +256,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         log(f"trace read {time.perf_counter() - a:.3f} s")
     metrics = read_metrics(cell, run, "per_layer" if trace else "end_to_end")
 
-    # the check: the plain reference of every density a kept job used
+    # the check: the plain reference of every pool item a kept job used
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     a = time.perf_counter()
@@ -254,16 +276,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
 
 def check_outputs(cell: Cell, ctx: Context, pool, kept: dict):
-    """Compare every kept output with the reference of its density.
+    """Compare every kept output with the reference of its pool item.
     Returns ({number: {"value", "limit"}}, jobs that broke a limit)."""
     import torch
 
     worst = {}
     failed = 0
-    by_density = {}
+    by_item = {}
     for j, (d, out) in sorted(kept.items()):
-        by_density.setdefault(d, []).append(out)
-    for d, outs in sorted(by_density.items()):
+        by_item.setdefault(d, []).append(out)
+    for d, outs in sorted(by_item.items()):
         ans = cell.job.reference(ctx, pool[d], torch.float64)
         for out in outs:
             nums = cell.job.compare(ctx, out, ans)

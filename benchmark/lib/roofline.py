@@ -7,6 +7,8 @@ card's power limit beside it.
 from __future__ import annotations
 
 H100_HBM_BYTES_PER_S = 3.35e12
+# dense FP64 on the Tensor Cores (DMMA), the rate of a complex128 GEMM
+H100_FP64_TENSOR_FLOPS_PER_S = 67e12
 
 
 def yt_launch_bytes(K: int, P: int, N: int, itemsize: int) -> int:
@@ -29,3 +31,9 @@ def nci_job_bytes(N: int, in_itemsize: int = 8, out_itemsize: int = 4,
 def least_seconds(nbytes: float) -> float:
     """The time the card's HBM needs to move nbytes."""
     return nbytes / H100_HBM_BYTES_PER_S
+
+
+def least_seconds_flops(flops: float) -> float:
+    """The time the card's FP64 Tensor Cores need for flops real
+    operations (a complex multiply-add of a ZGEMM counts 8)."""
+    return flops / H100_FP64_TENSOR_FLOPS_PER_S

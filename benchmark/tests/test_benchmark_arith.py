@@ -41,6 +41,16 @@ def test_yt_launch_bytes_hand_sum():
         == pytest.approx(0.2404e-3, rel=1e-3)
 
 
+def test_fp64_tensor_peak_and_least_seconds_of_flops():
+    # H100 SXM data sheet: 67 TFLOP/s dense FP64 on the Tensor Cores
+    assert roofline.H100_FP64_TENSOR_FLOPS_PER_S == 67e12
+    assert roofline.least_seconds_flops(67e12) == 1.0
+    # a 512 x 512 by 512 x 512 ZGEMM: 8 real flops a complex multiply-add,
+    # 8 * 512^3 = 1,073,741,824 flops, 16.0260 us
+    assert roofline.least_seconds_flops(8 * 512 ** 3) == pytest.approx(
+        16.0260e-6, rel=1e-5)
+
+
 def test_nci_job_bytes_hand_sum():
     N = 384 * 270 * 504
     assert roofline.nci_job_bytes(N) == 8 * N + 4 * N + 4 * N

@@ -7,7 +7,7 @@ import sys
 
 import pytest
 
-from benchmark.lib import density, harness
+from benchmark.lib import harness
 
 with open(os.path.join(harness.ROOT, "BENCHMARK.json")) as _fh:
     CELLS = [w["name"] for w in json.load(_fh)["workloads"]]
@@ -31,10 +31,10 @@ def test_short_run_on_the_card_is_correct(card, name):
 def test_control_on_the_card_is_not_correct(card, name):
     cell = harness.Cell.load(name)
     ctx = harness.Context(cfg=cell.cfg, traffic=cell.traffic, device=card)
-    rho = density.make_pool(cell.cfg, 17, 1, card)[0]
+    item = cell.data.make_pool(cell.cfg, 17, 1, card)[0]
     import torch
 
-    ans = cell.job.reference(ctx, rho, torch.float64)
-    ctl = cell.job.as_output(cell.job.reference(ctx, rho, cell.job.CONTROL))
+    ans = cell.job.reference(ctx, item, torch.float64)
+    ctl = cell.job.as_output(cell.job.reference(ctx, item, cell.job.CONTROL))
     nums = cell.job.compare(ctx, ctl, ans)
     assert any(v > cell.limits[k] for k, v in nums.items()), nums

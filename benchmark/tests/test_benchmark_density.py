@@ -7,7 +7,7 @@ import pytest
 import torch
 from conftest import BENCH, tiny_config
 
-from benchmark.lib import density
+from benchmark.lib import density, harness
 
 
 @pytest.mark.parametrize("name,grid,widen,atoms,electrons", [
@@ -32,6 +32,23 @@ def test_same_seed_same_pool_other_seed_other_pool():
     c = density.make_pool(cfg, 8, 2, "cpu")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a[0], c[0]) and not torch.equal(a[0], a[1])
+
+
+@pytest.mark.parametrize("name,grid,widen", [
+    ("nacl-b1-256", (32, 32, 32), 0.9),
+    ("anthracene-x23", (96, 72, 128), 0.0),
+])
+def test_shipped_configs_take_their_pool_from_density(name, grid, widen):
+    """Both configurations name two_gaussians: the harness's data model is
+    lib/density.py, and its pool is density.make_pool's, bit for bit."""
+    with open(os.path.join(BENCH, "configs", name + ".json")) as fh:
+        assert harness.data_model(json.load(fh)) is density
+    cfg = tiny_config(name, grid, widen)
+    model = harness.data_model(cfg)
+    ours = model.make_pool(cfg, 2 ** 34 + 7, 2, "cpu")
+    for a, b in zip(ours, density.make_pool(cfg, 2 ** 34 + 7, 2, "cpu")):
+        assert a.dtype == b.dtype == torch.float64
+        assert torch.equal(a, b)
 
 
 def test_draws_stay_within_the_jitter():

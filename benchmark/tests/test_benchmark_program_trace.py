@@ -19,17 +19,17 @@ METRICS = ("yt_flux_ms", "yt_solve_ms", "yt_fallbacks_per_job",
 # readers of the program's record came; a change to one of them is a
 # benchmark change of its own, which brings this list up to date
 BEFORE = {
-    "README.md": "46aaff5a96ba0c93",
-    "calibrate.py": "f5fc8a9ac5ccc20d",
+    "README.md": "a6944cc2812b1215",
+    "calibrate.py": "3152267dda9385f1",
     "configs/anthracene-x23.json": "b275b44aabc3b6a8",
     "configs/nacl-b1-256.json": "22881c0a22ec9821",
     "jobs/nci.py": "8d30479f4921e58f",
     "jobs/topology.py": "2c5d226e4d2badff",
     "jobs/yt.py": "f9cb7fa6c66d408b",
     "lib/density.py": "63a0f18a0fdbd74b",
-    "lib/harness.py": "1ceb1b297edcb0d8",
+    "lib/harness.py": "5acda76d28f95a0f",
     "lib/program.py": "244a489ff4d5425b",
-    "lib/roofline.py": "a5597a6edc253271",
+    "lib/roofline.py": "97bae8944cc645ec",
     "lib/stats.py": "eeaf12f1ab42039b",
     "lib/trace.py": "acecd0fa40912fbe",
     "limits/anthracene-x23.nci.json": "36b4a843a40b655f",
@@ -50,13 +50,13 @@ BEFORE = {
     "reference/yt.py": "ad8461baaf463c7a",
     "run.py": "984513d8356cecc3",
     "tests/conftest.py": "c25c084f03130475",
-    "tests/test_benchmark_arith.py": "a876a8c9be2050f1",
-    "tests/test_benchmark_card.py": "6b833b9f43038234",
+    "tests/test_benchmark_arith.py": "e7bb46bf6dff7745",
+    "tests/test_benchmark_card.py": "9892311d1a98042b",
     "tests/test_benchmark_checks.py": "425b9e73837df7af",
     "tests/test_benchmark_contract.py": "de0f08b2dba745c3",
-    "tests/test_benchmark_density.py": "078354982d2482f2",
-    "tests/test_benchmark_extend.py": "940ba7a9159c4044",
-    "tests/test_benchmark_guard.py": "d1712ba8c33873fe",
+    "tests/test_benchmark_density.py": "f8c8860c2f94289b",
+    "tests/test_benchmark_extend.py": "27439f3b38d02dbd",
+    "tests/test_benchmark_guard.py": "6d316a66c0bb3bd9",
     "traffic/nci.json": "6b92ff7fb3340817",
     "traffic/topology.json": "7ce4834b464c88ad",
     "traffic/yt-pool4.json": "0f1bb1bfa1099d5f",
