@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import FDTYPE, resolve_device
+from ..utils import trace
 
 CDTYPE = torch.complex128
 
@@ -104,6 +105,9 @@ class QEData:
     spread: np.ndarray | None = None   # (nspin, nbndw) bohr
     u: np.ndarray | None = None        # (nspin, nks, nbndw, nbndw)
     _fft_index: tuple = dfield(default=None, repr=False, compare=False)
+    # constants of the states uploaded once: the k-points, the lattice
+    # vectors, the U matrices of a spin (cleared by attach_wannier)
+    _dev: dict = dfield(default_factory=dict, repr=False, compare=False)
 
     @property
     def nlat(self) -> int:
@@ -119,7 +123,103 @@ class QEData:
                                  np.arange(self.nk[2]), indexing="ij")
         return np.stack([k1.ravel(), k2.ravel(), k3.ravel()], axis=1)
 
+    # ---------------------------------------------------- in-memory builds
+
+    @classmethod
+    def from_arrays(cls, at, nk, n, kpt, wk, ek, occ, ngk, igk_k, nl, nlm,
+                    evc: torch.Tensor, fpwc: str = "") -> "QEData":
+        """A QEData from the records of a pwc file, in their layout and
+        units: `at` (3,3) lattice vectors as columns, `kpt` (nks,3)
+        Cartesian k-points (kpt @ at is crystallographic), `wk` (nks,),
+        `ek` (nspin*nks, nbnd) in Ry, `occ` (nspin*nks, nbnd) the band
+        weights, `ngk` (nks,), `igk_k` (nks, npwx) and `nl`, `nlm`
+        (ngms,) 1-based, `nlm` None unless gamma-only; `evc` (nspin, nks,
+        nbnd, npwx) complex128, already on the device the states are to
+        live on. Converts the k-points to crystallographic and the
+        energies to Ha, as read_pwc does."""
+        nspin, nks, nbnd, _ = (int(v) for v in evc.shape)
+        # cart (2pi/alat) -> crystallographic; Ry -> Ha
+        kpt = np.asarray(kpt, dtype=np.float64) @ at
+        ek = 0.5 * np.asarray(ek, dtype=np.float64)
+        return cls(nks=nks, nk=np.asarray(nk, dtype=np.int64), nbnd=nbnd,
+                   nspin=nspin, gamma_only=nlm is not None,
+                   n=tuple(int(v) for v in n), at=at, kpt=kpt,
+                   wk=np.asarray(wk, dtype=np.float64), ek=ek,
+                   occ=np.asarray(occ, dtype=np.float64),
+                   ngk=np.asarray(ngk, dtype=np.int64),
+                   igk_k=np.asarray(igk_k, dtype=np.int64),
+                   nl=np.asarray(nl, dtype=np.int64),
+                   nlm=None if nlm is None else np.asarray(nlm, np.int64),
+                   evc=evc, fpwc=fpwc)
+
+    def density(self) -> torch.Tensor:
+        """The electron density (n1, n2, n3), f64 on the states' device:
+        rho = fspin/(det(at) sum(wk)) * sum_{s,k,b} occ |ifft(evc)|^2
+        (read_pwc, src/grid3mod@proc.f90:734-852), one batch of bands per
+        (spin, k)."""
+        dev = self.device
+        fspin = 2.0 if self.nspin == 1 else 1.0
+        rho = torch.zeros(self.n, dtype=FDTYPE, device=dev)
+        trace.count("host_syncs")
+        occ_d = torch.tensor(self.occ, dtype=FDTYPE, device=dev)
+        for ispin in range(self.nspin):
+            for ik in range(self.nks):
+                psi = self._to_grid(self.evc[ispin, ik], torch.full(
+                    (self.nbnd,), ik, dtype=torch.int64, device=dev))
+                w = occ_d[ispin * self.nks + ik][:, None, None, None]
+                rho += (w * psi.abs() ** 2).sum(0)
+        rho *= fspin / (abs(np.linalg.det(self.at)) * self.wk.sum())
+        return rho
+
+    def attach_wannier(self, u, centres_cart_ang, spreads_sq_ang2,
+                       rlatt) -> "QEData":
+        """Attach wannier90 data; each argument holds one entry per spin
+        channel (per chk file): u (nks, nw, nw) complex, U[k, i, j] as
+        rotate_qe_evc takes it; centres (nw, 3) Cartesian in angstrom;
+        spreads (nw,) in angstrom^2; rlatt (3, 3) lattice vectors as rows,
+        in angstrom. Converts the centres to crystallographic coordinates
+        of the k-point supercell (cell fractions wrapped into [0, nk)) and
+        the spreads to bohr, as read_wannier_chk does; returns self."""
+        nspin = self.nspin
+        nk = self.nk
+        bohrtoa = 0.52917720859
+        nbndw = np.zeros(2, np.int64)
+        udata, cdata, sdata = [], [], []
+        for is_, (uu, cen, spr, rl) in enumerate(zip(
+                u, centres_cart_ang, spreads_sq_ang2, rlatt)):
+            nbndw[is_] = uu.shape[1]
+            # centers: cartesian (ang) -> supercell crystallographic
+            cen = cen @ np.linalg.inv(rl)
+            cen = np.where(cen > nk[None, :], cen - nk[None, :], cen)
+            cen = np.where(cen < 0.0, cen + nk[None, :], cen)
+            udata.append(uu)
+            cdata.append(cen)
+            sdata.append(np.sqrt(spr) / bohrtoa)
+
+        jb = int(nbndw[:len(udata)].max())
+        self.nbndw = nbndw if nspin == 2 else np.array([nbndw[0], nbndw[0]])
+        self.u = np.zeros((nspin, self.nks, jb, jb), np.complex128)
+        self.center = np.zeros((nspin, jb, 3))
+        self.spread = np.zeros((nspin, jb))
+        for is_ in range(len(udata)):
+            b = int(nbndw[is_])
+            self.u[is_, :, :b, :b] = udata[is_]
+            self.center[is_, :b] = cdata[is_]
+            self.spread[is_, :b] = sdata[is_]
+        self.iswan = True
+        self._dev.clear()
+        return self
+
     # ------------------------------------------------------- device programs
+
+    def _on_device(self, name, make):
+        """The array make() on the states' device, uploaded at the first
+        call (a copy from pageable memory, a host sync) and kept."""
+        t = self._dev.get(name)
+        if t is None:
+            trace.count("host_syncs")
+            t = self._dev[name] = torch.as_tensor(make(), device=self.device)
+        return t
 
     def _index(self):
         """Flat 0-based Fortran grid index of every (k, plane wave) slot,
@@ -133,6 +233,7 @@ class QEData:
             idxm = None if (not self.gamma_only or self.nlm is None) else \
                 self.nlm[ig] - 1
             dev = self.device
+            trace.count("host_syncs", 2 if idxm is None else 3)
             self._fft_index = (
                 torch.as_tensor(idx, device=dev),
                 torch.as_tensor(valid, device=dev),
@@ -141,13 +242,16 @@ class QEData:
 
     def _to_grid(self, coef, ks):
         """Unscaled inverse FFT of plane-wave rows: coef (B, npwx) complex
-        for k-points ks (B,) -> (B, n1, n2, n3) complex on the device.
+        for k-points ks (B,) -> (B, n1, n2, n3) complex on the device
+        (ks a device tensor, or host integers copied over).
         One index_put_ writes every row's coefficients (the gamma-only
         conjugate partners after them, as the reference writes them)."""
         n1, n2, n3 = self.n
         idx, valid, idxm = self._index()
         B = coef.shape[0]
-        ks = torch.as_tensor(ks, device=self.device)
+        if not isinstance(ks, torch.Tensor):
+            trace.count("host_syncs")
+            ks = torch.as_tensor(ks, device=self.device)
         sel = valid[ks]                                        # (B, npwx)
         rows = torch.arange(B, device=self.device)[:, None].expand_as(sel)
         grids = torch.zeros((B, n1 * n2 * n3), dtype=CDTYPE,
@@ -168,12 +272,13 @@ class QEData:
         if useu and self.iswan:
             nb = int(self.nbndw[spin])
             # evcnew_k = sum_j U[k, j, band] evc_{k j}  (rotate_qe_evc)
-            u = torch.as_tensor(self.u[spin, :, :nb, band], dtype=CDTYPE,
-                                device=self.device)
+            u = self._on_device(("u", spin),
+                                lambda: self.u[spin])[:, :nb, band]
             coef = torch.einsum("kj,kjp->kp", u, self.evc[spin, :, :nb, :])
         else:
             coef = self.evc[spin, :, band, :]
-        return self._to_grid(coef, np.arange(self.nks))
+        return self._to_grid(coef, torch.arange(self.nks,
+                                                device=self.device))
 
     def wannier_home(self, spin: int, band: int, useu: bool = True,
                      phase_fix: bool = True):
@@ -189,7 +294,7 @@ class QEData:
         n1, n2, n3 = self.n
         dev = self.device
         u = self.bloch_on_grid(spin, band, useu=useu)         # (nks, n1,n2,n3)
-        kpt = torch.as_tensor(self.kpt, dtype=FDTYPE, device=dev)
+        kpt = self._on_device("kpt", lambda: self.kpt)
         fx = torch.arange(n1, dtype=FDTYPE, device=dev) / n1
         fy = torch.arange(n2, dtype=FDTYPE, device=dev) / n2
         fz = torch.arange(n3, dtype=FDTYPE, device=dev) / n3
@@ -198,12 +303,14 @@ class QEData:
             + kpt[:, 1, None, None, None] * fy[None, None, :, None]
             + kpt[:, 2, None, None, None] * fz[None, None, None, :]))
         psi = (u * ph).reshape(self.nks, -1)                  # (nks, N)
-        rvec = torch.as_tensor(self.rvectors(), dtype=FDTYPE, device=dev)
+        rvec = self._on_device("rvec",
+                               lambda: self.rvectors().astype(np.float64))
         E = torch.exp(-2j * torch.pi * (rvec @ kpt.T)) / self.nlat
         W = E @ psi                                           # (nlat, N)
         if phase_fix:
             # reference tnorm: rotate the global abs-max value to real+
-            t = W.reshape(-1)[torch.argmax(W.abs())]
+            # (gathered on the device, the argmax never read)
+            t = W.reshape(-1).gather(0, torch.argmax(W.abs()).reshape(1))[0]
             W = W * (t.abs() / t)
         return W.reshape(self.nlat, n1, n2, n3)
 
@@ -212,9 +319,9 @@ def read_pwc(path: str, *, device=None) -> tuple[QEData, torch.Tensor]:
     """Read a pwc file (pw2critic.x); returns (QEData, rho grid
     (n1,n2,n3) f64 tensor), both on `device` (cuda by default).
 
-    Mirrors src/grid3mod@proc.f90:734-852 including the density build
-    rho = fspin/(det(at) sum(wk)) * sum_{s,k,b} occ |ifft(evc)|^2 and the
-    cart->cryst k-point conversion kpt_cryst = kpt @ at."""
+    Mirrors src/grid3mod@proc.f90:734-852: the records are parsed here,
+    `QEData.from_arrays` converts them (kpt_cryst = kpt @ at, Ry -> Ha)
+    and `QEData.density` builds the density."""
     dev = resolve_device(device)
     fh = FortranFile(path)
     fh.read_record()                      # version
@@ -241,10 +348,6 @@ def read_pwc(path: str, *, device=None) -> tuple[QEData, torch.Tensor]:
     if gamma_only:
         nlm = fh.read_record(np.int32)[:ngms].astype(np.int64)
 
-    # cart (2pi/alat) -> crystallographic; Ry -> Ha
-    kpt = kpt @ at
-    ek = 0.5 * ek
-
     evc = np.zeros((nspin, nks, nbnd, npwx), np.complex128)
     for ispin in range(nspin):
         for ik in range(nks):
@@ -253,39 +356,26 @@ def read_pwc(path: str, *, device=None) -> tuple[QEData, torch.Tensor]:
                     np.complex128)[:ngk[ik]]
     fh.close()
 
-    qe = QEData(nks=nks, nk=nk, nbnd=nbnd, nspin=nspin, gamma_only=gamma_only,
-                n=n, at=at, kpt=kpt, wk=wk, ek=ek, occ=occ, ngk=ngk,
-                igk_k=igk_k, nl=nl, nlm=nlm,
-                evc=torch.as_tensor(evc, device=dev), fpwc=path)
-
-    # electron density: one batch of bands per (spin, k) on the device
-    fspin = 2.0 if nspin == 1 else 1.0
-    rho = torch.zeros(n, dtype=FDTYPE, device=dev)
-    occ_d = torch.tensor(occ, dtype=FDTYPE, device=dev)
-    for ispin in range(nspin):
-        for ik in range(nks):
-            psi = qe._to_grid(qe.evc[ispin, ik], np.full(nbnd, ik))
-            w = occ_d[ispin * nks + ik][:, None, None, None]
-            rho += (w * psi.abs() ** 2).sum(0)
-    rho *= fspin / (abs(np.linalg.det(at)) * wk.sum())
-    return qe, rho
+    trace.count("host_syncs")
+    qe = QEData.from_arrays(at, nk, n, kpt, wk, ek, occ, ngk, igk_k, nl,
+                            nlm, torch.as_tensor(evc, device=dev),
+                            fpwc=path)
+    return qe, qe.density()
 
 
 def read_wannier_chk(qe: QEData, fileup: str, filedn: str | None = None):
     """Attach wannier90 .chk data (U matrices, centers, spreads) to `qe`.
 
-    Mirrors src/grid3mod@proc.f90:899-1038: rejects excluded bands and
-    disentanglement, checks k-point consistency, converts centers to
-    crystallographic (supercell fraction * nk) and spreads to bohr."""
+    Mirrors src/grid3mod@proc.f90:899-1038: the records are parsed here,
+    rejecting excluded bands and disentanglement and checking k-point
+    consistency; `QEData.attach_wannier` converts them."""
     nspin = qe.nspin
     if (filedn is not None) != (nspin == 2):
         raise ValueError("chk files inconsistent with nspin")
     files = [fileup] + ([filedn] if filedn else [])
-    bohrtoa = 0.52917720859
 
-    nbndw = np.zeros(2, np.int64)
-    udata, cdata, sdata = [], [], []
-    for is_, fname in enumerate(files):
+    udata, cdata, sdata, ldata = [], [], [], []
+    for fname in files:
         fh = FortranFile(fname)
         fh.read_record()                                   # header
         nbnd = int(fh.read_record(np.int32)[0])
@@ -312,7 +402,6 @@ def read_wannier_chk(qe: QEData, fileup: str, filedn: str | None = None):
         qe.nk = nk
         fh.read_record()                                   # nntot
         jb = int(fh.read_record(np.int32)[0])              # num wann
-        nbndw[is_] = jb
         fh.read_record()                                   # chkpt position
         disent = bool(fh.read_record(np.int32)[0])
         if disent:
@@ -323,24 +412,8 @@ def read_wannier_chk(qe: QEData, fileup: str, filedn: str | None = None):
         cen = fh.read_record(np.float64).reshape(jb, 3)
         spr = fh.read_record(np.float64)[:jb]
         fh.close()
-        # centers: cartesian (ang) -> supercell crystallographic
-        cen = cen @ np.linalg.inv(rlatt)
-        cen = np.where(cen > nk[None, :], cen - nk[None, :], cen)
-        cen = np.where(cen < 0.0, cen + nk[None, :], cen)
-        spr = np.sqrt(spr) / bohrtoa
         udata.append(u)
         cdata.append(cen)
         sdata.append(spr)
-
-    jb = int(nbndw[:len(files)].max())
-    qe.nbndw = nbndw if nspin == 2 else np.array([nbndw[0], nbndw[0]])
-    qe.u = np.zeros((nspin, qe.nks, jb, jb), np.complex128)
-    qe.center = np.zeros((nspin, jb, 3))
-    qe.spread = np.zeros((nspin, jb))
-    for is_ in range(len(files)):
-        b = int(nbndw[is_])
-        qe.u[is_, :, :b, :b] = udata[is_]
-        qe.center[is_, :b] = cdata[is_]
-        qe.spread[is_, :b] = sdata[is_]
-    qe.iswan = True
-    return qe
+        ldata.append(rlatt)
+    return qe.attach_wannier(udata, cdata, sdata, ldata)
