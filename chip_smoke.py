@@ -20,7 +20,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      thread, and anthracene's grid lattice (K=8) at 8x270x504, whose
      45x23 tiles hold 3 points a thread in float32 and stay in shared
      memory in float64 (P=2, both directions; points a thread, grid
-     barriers and block 0's local iterations printed).
+     barriers and block 0's local iterations printed); then, along axis
+     1 (float32): the same lattice (planes of 8 x 504), anthracene's grid
+     lattice cut to 8 of its 270 b planes at 384x8x504 (the full grid's
+     384 x 504 planes: 35x42 tiles, 132 of them, 3 points a thread) and
+     a triclinic 50x40x37 grid (13x19 tiles, ragged on both plane axes),
+     and last anthracene's
+     full 384 x 270 x 504 grid on the benchmark's first density of seed
+     1234567891 (benchmark/lib/density.py), swept along axis 0 and along
+     axis 1 (the axis yt_integrate picks there): per sweep of the first
+     adjoint f32 pair (P = 2) its time, grid barriers, block 0's local
+     iterations and tile, the pairs each axis takes to a zero flag, and
+     the refined solve of each axis (launches, time, and its values at
+     the 48 attractors against the other axis's, 1e-12 relative).
      yt_pass must match bitwise (its relative error printed); yt_gs_pass
      sweep pairs are iterated to a zero flag and the fixpoints must be
      bitwise equal and every flag the same;
@@ -237,6 +249,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 N_SLICE = 256                  # the yt256 leg of tools/parity_bench.py
+ANTHRACENE_SEED = 1234567891   # the benchmark density of the axis leg
 N_KERNEL = 48                  # grid of the kernel-against-plain phase
 # NCI box for fast path against generic route: every axis odd, so no
 # output plane but index 0 lies on a node plane of the 256 grid (254 would
@@ -326,17 +339,20 @@ def flux_csr(chiP, offs, adjoint=True):
             size=(N, N), check_invariants=False)
 
 
-def gs_fixpoint(gs, op, f3, offs, adjoint, tag):
-    """Gauss-Seidel sweep pairs from f to a pair with both flags 0; returns
-    (fixpoint, flags, the first sweep's schedule counters)."""
+def gs_fixpoint(gs, op, f3, offs, adjoint, tag, axis=0):
+    """Gauss-Seidel sweep pairs along `axis` from f to a pair with both
+    flags 0; returns (fixpoint, flags, the first sweep's schedule
+    counters)."""
     from critic2_tpu_torch.ops import yt_pass as ops
 
     s, flags, first = f3, [], None
     for _ in range(sum(f3.shape[1:]) + 16):
-        s, c1 = gs(op, s, f3, offs=offs, adjoint=adjoint, backward=False)
+        s, c1 = gs(op, s, f3, offs=offs, adjoint=adjoint, backward=False,
+                   axis=axis)
         if first is None:
             first = ops.gs_counts()
-        s, c2 = gs(op, s, f3, offs=offs, adjoint=adjoint, backward=True)
+        s, c2 = gs(op, s, f3, offs=offs, adjoint=adjoint, backward=True,
+                   axis=axis)
         flags.append((int(c1), int(c2)))
         if flags[-1] == (0, 0):
             return s, flags, first
@@ -361,7 +377,11 @@ def kernel_phase(dev, n):
                 # 384 planes: the grid lattice of its 384 x 270 x 504
                 # grid, K = 8, 4 of them in-plane
                 "monoclinic": ([15.901 * 8 / 384, 11.320, 20.967],
-                               [90, 125.293, 90])}
+                               [90, 125.293, 90]),
+                # the same grid lattice with b cut to 8 of its 270 planes:
+                # along axis 1 the full grid's 384 x 504 planes
+                "monoclinic-b": ([15.901, 11.320 * 8 / 270, 20.967],
+                                 [90, 125.293, 90])}
     f32, f64 = torch.float32, torch.float64
     # (lattice, shape, P, dtypes, directions, density noise, sites)
     cases = [(lat, (n,) * 3, 2, (f32, f64), (True, False), 1e-3, 2)
@@ -384,7 +404,18 @@ def kernel_phase(dev, n):
         # anthracene's plane: 45 x 23 tiles, 3 points a thread
         ("monoclinic", (8, 270, 504), 2, (f32, f64), (True, False), 1e-3,
          2)]
-    for lname, shape, P, dtypes, dirs, noise, nsite in cases:
+    # (lattice, shape, ...) of the cases also swept along axis 1
+    # (f32 only: the plain sweep of 270 planes takes seconds;
+    # tests/test_torch_yt_gs_card.py holds f64 too)
+    cases = [c + (0,) for c in cases] + [
+        ("monoclinic", (8, 270, 504), 2, (f32,), (True, False), 1e-3, 2,
+         1),
+        # the plan of anthracene's solve: 35 x 42 tiles, 3 points a thread
+        ("monoclinic-b", (384, 8, 504), 2, (f32,), (True, False), 1e-3, 2,
+         1),
+        # planes of 50 x 37, as the cubic case's along axis 0
+        ("triclinic", (50, 40, 37), 2, (f32,), (True, False), 1e-3, 2, 1)]
+    for lname, shape, P, dtypes, dirs, noise, nsite, axis in cases:
         c = Crystal(m_x2c=m_x2c_from_cellpar(*lattices[lname]),
                     x_frac=np.array([[0.25, 0.25, 0.25], [0.75, 0.7, 0.6]]),
                     species_of=np.array([0, 0]), species=[Species("C", 6)])
@@ -405,7 +436,8 @@ def kernel_phase(dev, n):
                 tag = (f"{lname} {'x'.join(map(str, shape))} K={len(offs)} "
                        f"P={P} {str(dt)[6:]} "
                        f"{'adjoint' if adjoint else 'forward'}"
-                       f"{' smooth' if noise == 0 else ''}")
+                       f"{' smooth' if noise == 0 else ''}"
+                       f"{' axis 1' if axis else ''}")
                 out_k = ops.yt_pass(op, s, f3, offs=offs, adjoint=adjoint)
                 out_p = ops.yt_pass_plain(op, s, f3, offs=offs,
                                           adjoint=adjoint)
@@ -415,9 +447,9 @@ def kernel_phase(dev, n):
                       f"err {e:.3e}")
 
                 sk, fk, ck = gs_fixpoint(ops.yt_gs_pass, op, f3, offs,
-                                         adjoint, tag)
+                                         adjoint, tag, axis)
                 sp, fp, cp = gs_fixpoint(ops.yt_gs_pass_plain, op, f3, offs,
-                                         adjoint, tag)
+                                         adjoint, tag, axis)
                 check(fk == fp, f"yt_gs_pass {tag}: flags {fk} vs {fp}")
                 check(torch.equal(sk, sp), f"yt_gs_pass {tag}: fixpoints "
                       f"differ, rel err {rel_err(sk, sp):.3e}")
@@ -432,18 +464,125 @@ def kernel_phase(dev, n):
                     f"block 0's local iterations "
                     f"{ck['local_iters_block0']}")
                 ty, tz = ck["tile"]
-                if shape == (40, 50, 37):
-                    check(shape[1] % ty and shape[2] % tz,
+                plane = (shape[0], shape[2]) if axis else shape[1:]
+                if plane == (50, 37):
+                    check(plane[0] % ty and plane[1] % tz,
                           f"{tag}: tile {ty}x{tz} divides the plane")
-                if shape[1:] in ((264, 264), (270, 504)):
+                if plane in ((264, 264), (270, 504), (384, 504)):
                     # float64 keeps such tiles in shared memory
-                    want = 0 if dt == f64 else 2 if shape[1] == 264 else 3
+                    want = 0 if dt == f64 else 2 if plane[0] == 264 else 3
                     check(ck["res"] == (want > 0) and ck["ppt"] == want,
                           f"{tag}: tile {ty}x{tz}, {ck['ppt']} points a "
                           f"thread in registers, not {want}")
+                if plane == (384, 504):
+                    check((ty, tz, ck["tiles"]) == (35, 42, 132),
+                          f"{tag}: {ck['tiles']} tiles of {ty}x{tz}, not "
+                          f"anthracene's 132 of 35x42")
                 check((ck["pc"] < P) == (P > ops.GS_MAXP),
                       f"{tag}: {ck['pc']} integrands a launch")
+                check(ck["axis"] == axis, f"{tag}: swept along axis "
+                      f"{ck['axis']}")
+    anthracene_axis_leg(dev)
     log(json.dumps({"kernels_checked": ["yt_pass", "yt_gs_pass"]}))
+
+
+def anthracene_axis_leg(dev):
+    """Phase 3's last leg: yt_gs_pass on anthracene's full grid along axis
+    0 and along axis 1, as the adjoint solve of the benchmark's
+    anthracene-x23.yt runs it (f32, P = 2, K = 8)."""
+    import numpy as np
+    import torch
+
+    from benchmark.lib import density
+    from critic2_tpu_torch.analysis import yt
+    from critic2_tpu_torch.convert import crystal_from_arrays
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "anthracene-x23.json")) as fh:
+        cfg = json.load(fh)
+    st = cfg["structure"]
+    rho = density.make_pool(cfg, ANTHRACENE_SEED, 1, dev)[0]
+    c = crystal_from_arrays(np.asarray(st["lattice_bohr"]), st["x_frac"],
+                            st["species_of"],
+                            [(s["name"], s["z"]) for s in st["species"]])
+    res = yt.yt_integrate(c, rho)
+    offs = res._offs
+    axis = yt._sweep_axis(offs)
+    check(len(offs) == 8 and axis == 1,
+          f"anthracene: K = {len(offs)}, sweep axis {axis}, not 8, 1")
+    chi32, chi64 = res._chis(adjoint=True)
+    f3 = torch.stack([torch.ones_like(rho), rho])
+    f32 = f3.to(torch.float32)
+    i1, i2, i3 = res._index(res.iattr)
+    tag = f"anthracene {'x'.join(map(str, res.shape))} K=8 P=2"
+    out = {}
+    for axis in (0, 1):
+        rows = []
+        s = f32
+        for j in range(2):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            s, _ = ops.yt_gs_pass(chi32, s, f32, offs=offs,
+                                  backward=j == 1, axis=axis)
+            b.record()
+            b.synchronize()
+            ck = ops.gs_counts()
+            rows.append(dict(ms=a.elapsed_time(b),
+                             grid_barriers=ck["grid_barriers"],
+                             local_iters_block0=ck["local_iters_block0"],
+                             tile=list(ck["tile"]), tiles=ck["tiles"],
+                             ppt=ck["ppt"]))
+            log(f"{tag} axis {axis}, first pair sweep {j + 1}: "
+                f"{rows[-1]['ms']:.4f} ms, grid barriers "
+                f"{ck['grid_barriers']}, block 0's local iterations "
+                f"{ck['local_iters_block0']}, tile {ck['tile'][0]}x"
+                f"{ck['tile'][1]} x {ck['tiles']}, {ck['ppt']} points a "
+                f"thread in registers")
+        # pairs from f to a zero flag
+        s, npair = f32, 0
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        while True:
+            s, flag = yt._gs_pairs(chi32, s, f32, offs, True, 1, axis)
+            npair += 1
+            if int(flag) == 0:
+                break
+            check(npair < sum(res.shape), f"{tag} axis {axis}: no fixpoint")
+        t1.record()
+        t1.synchronize()
+        # the refined solve as intgrid runs it
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        sol = yt._solve_sweep(res._chiP, chi32, chi64, f3, offs, axis=axis)
+        at = sol[:, i1, i2, i3]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        out[axis] = dict(first_pair=rows, pairs_to_zero_flag=npair,
+                         pairs_ms=t0.elapsed_time(t1),
+                         solve_ms=wall * 1e3,
+                         solve_launches=ops.launches["yt_gs_pass"],
+                         attractors=at)
+        log(f"{tag} axis {axis}: {npair} pairs from f to a zero flag "
+            f"({out[axis]['pairs_ms']:.1f} ms); refined solve "
+            f"{out[axis]['solve_ms']:.1f} ms, "
+            f"{out[axis]['solve_launches']} yt_gs_pass launches")
+        del s, sol
+    gap = rel_err(out[1].pop("attractors"), out[0].pop("attractors"))
+    check(gap < 1e-12, f"{tag}: the two axes' solves differ at the "
+          f"attractors, rel err {gap:.3e}")
+    check(out[1]["pairs_to_zero_flag"] < out[0]["pairs_to_zero_flag"],
+          f"{tag}: axis 1 takes no fewer pairs than axis 0")
+    log(json.dumps({"anthracene_axis": {"nattr": res.nattr,
+                                        "attractor_rel_gap": gap,
+                                        **{f"axis{a}": v
+                                           for a, v in out.items()}}}))
+    del res, chi32, chi64, f3, f32, rho
+    torch.cuda.empty_cache()
 
 
 def nacl_crystal():

@@ -19,7 +19,8 @@ Two directions of the same recurrence cover all consumers:
 The solve (`_solve_sweep`) takes one of two routes:
   * tensors on CUDA: f32 Gauss-Seidel sweeps through the yt_gs_pass kernel
     plus one f64 refinement whose residual f + R s goes through the
-    yt_pass kernel;
+    yt_pass kernel; the sweeps run along the grid axis that `_sweep_axis`
+    picks from the neighbour offsets;
   * tensors on the CPU: the f64 Jacobi fixpoint by torch.rolls
     (`_xla_sweep`, named after its JAX counterpart).
 
@@ -61,6 +62,25 @@ def _grid_ws_neighbors(crystal, shape):
 
 def _neg(o):
     return tuple(-int(v) for v in o)
+
+
+def _sweep_axis(offs) -> int:
+    """The grid axis the Gauss-Seidel solve sweeps along: of axes 0 and 1,
+    the one with fewer cross-plane neighbours that also step within the
+    plane, ties to 0.
+
+    A sweep pair resolves an uphill chain whose cross-plane steps turn
+    back along the sweep axis at most once, while in-plane steps cost
+    nothing (each plane is solved to its fixpoint). A cross-plane
+    neighbour with an in-plane step lets a chain climb within the planes
+    by zig-zagging across them, one turn per step, so the pairs grow with
+    the grid. Cubic and orthorhombic grid lattices have none along any
+    axis (0); anthracene's monoclinic one has two along axis 0 and none
+    along its unique axis 1 (1)."""
+    def mixed(a):
+        return sum(1 for o in offs
+                   if o[a] and any(o[b] for b in range(3) if b != a))
+    return 1 if mixed(1) < mixed(0) else 0
 
 
 def _flux_tensors(rho3, wts, offs):
@@ -144,43 +164,46 @@ def _xla_sweep(chiP, f3, offs, adjoint=True):
         s = s_new
 
 
-def _gs_pairs(chiP32, s, f3, offs, adjoint, npair):
-    """npair forward+backward Gauss-Seidel sweep pairs through the
-    yt_gs_pass kernel; returns (s, last pair's changed-anything flag as a
-    device tensor, so no sync happens here)."""
+def _gs_pairs(chiP32, s, f3, offs, adjoint, npair, axis=0):
+    """npair forward+backward Gauss-Seidel sweep pairs along `axis`
+    through the yt_gs_pass kernel; returns (s, last pair's
+    changed-anything flag as a device tensor, so no sync happens here)."""
     flag = None
     for _ in range(npair):
         s, c1 = yt_gs_pass(chiP32, s, f3, offs=offs, adjoint=adjoint,
-                           backward=False)
+                           backward=False, axis=axis)
         s, c2 = yt_gs_pass(chiP32, s, f3, offs=offs, adjoint=adjoint,
-                           backward=True)
+                           backward=True, axis=axis)
         flag = c1[0, 0] + c2[0, 0]
     return s, flag
 
 
-def _kernel_sweep(chiP32, f3, offs, adjoint):
-    """f32 fixpoint by Gauss-Seidel sweep pairs until a pair changes
-    nothing: 4 pairs first (they resolve typical atomic-basin fields), then
-    2 at a time, one flag read per batch."""
-    s, flag = _gs_pairs(chiP32, f3, f3, offs, adjoint, npair=4)
+def _kernel_sweep(chiP32, f3, offs, adjoint, axis=0):
+    """f32 fixpoint by Gauss-Seidel sweep pairs along `axis` until a pair
+    changes nothing: 4 pairs first (they resolve typical atomic-basin
+    fields), then 2 at a time, one flag read per batch."""
+    s, flag = _gs_pairs(chiP32, f3, f3, offs, adjoint, npair=4, axis=axis)
     npairs = 4
     maxpair = sum(f3.shape[1:]) + 16
     while True:
         trace.count("host_syncs")
         if int(flag) == 0 or npairs >= maxpair:
             return s
-        s, flag = _gs_pairs(chiP32, s, f3, offs, adjoint, npair=2)
+        s, flag = _gs_pairs(chiP32, s, f3, offs, adjoint, npair=2,
+                            axis=axis)
         npairs += 2
 
 
 def _solve_sweep(chiP, chiP32, chiR, f3, offs, adjoint=True, nrefine=1,
-                 rtol=1e-11):
+                 rtol=1e-11, axis=0):
     """Solve (I - R) s = f at f64 accuracy.
 
     chiP32 None: the f64 Jacobi fixpoint (_xla_sweep). Otherwise the kernel
-    route: f32 Gauss-Seidel solves (chiP32: f32 flux, shifted for the
-    adjoint) with f64 iterative refinement, the residual r = f + R s - s
-    evaluated by yt_pass with chiR (the f64 flux, shifted for the adjoint).
+    route: f32 Gauss-Seidel solves along grid axis `axis` (chiP32: f32
+    flux, shifted for the adjoint) with f64 iterative refinement, the
+    residual r = f + R s - s evaluated by yt_pass with chiR (the f64 flux,
+    shifted for the adjoint); a kernel-route solve along an axis other
+    than 0 counts one `yt.off_axis_solves`.
     The optimistic path queues solve + residual + correction solve and
     reads both convergence flags in ONE sync; when a flag trips it falls
     back to the flag-stepped loop (one `yt.fallbacks` count a trip)."""
@@ -188,13 +211,17 @@ def _solve_sweep(chiP, chiP32, chiR, f3, offs, adjoint=True, nrefine=1,
     with trace.span("yt.solve"):
         if chiP32 is None:
             return _xla_sweep(chiP, f3, offs, adjoint=adjoint)
+        if axis:
+            trace.count("yt.off_axis_solves")
         if nrefine == 1:
             f32a = f3.to(torch.float32)
-            s1, flag1 = _gs_pairs(chiP32, f32a, f32a, offs, adjoint, npair=4)
+            s1, flag1 = _gs_pairs(chiP32, f32a, f32a, offs, adjoint, npair=4,
+                                  axis=axis)
             s1 = s1.to(f3.dtype)
             r = yt_pass(chiR, s1, f3, offs=offs, adjoint=adjoint) - s1
             r32 = r.to(torch.float32)
-            e, flag2 = _gs_pairs(chiP32, r32, r32, offs, adjoint, npair=4)
+            e, flag2 = _gs_pairs(chiP32, r32, r32, offs, adjoint, npair=4,
+                                 axis=axis)
             out = s1 + e.to(f3.dtype)
             trace.count("host_syncs")
             if int((flag1 != 0) | (flag2 != 0)) == 0:   # one host sync
@@ -202,7 +229,7 @@ def _solve_sweep(chiP, chiP32, chiR, f3, offs, adjoint=True, nrefine=1,
             trace.count("yt.fallbacks")
         with trace.span("yt.fallback"):
             s = _kernel_sweep(chiP32, f3.to(torch.float32), offs,
-                              adjoint).to(f3.dtype)
+                              adjoint, axis).to(f3.dtype)
             for i in range(nrefine):
                 r = yt_pass(chiR, s, f3, offs=offs, adjoint=adjoint) - s
                 if i > 0:
@@ -211,7 +238,7 @@ def _solve_sweep(chiP, chiP32, chiR, f3, offs, adjoint=True, nrefine=1,
                     if float(r.abs().max()) <= rtol * fscale:
                         break
                 s = s + _kernel_sweep(chiP32, r.to(torch.float32), offs,
-                                      adjoint).to(f3.dtype)
+                                      adjoint, axis).to(f3.dtype)
             return s
 
 
@@ -260,7 +287,7 @@ class YTResult:
         with trace.span("yt.operands"):
             chi32, chiR = self._chis(adjoint)
         return _solve_sweep(self._chiP, chi32, chiR, f3, self._offs,
-                            adjoint=adjoint)
+                            adjoint=adjoint, axis=_sweep_axis(self._offs))
 
     @property
     def labels(self) -> np.ndarray:

@@ -1,8 +1,9 @@
-// One plane-ordered Gauss-Seidel sweep of s = f + R s along axis 0.
+// One plane-ordered Gauss-Seidel sweep of s = f + R s along grid axis 0
+// or 1.
 //
 // Replaces critic2_tpu/ops/yt_pass.py::yt_gs_pass (the Pallas kernel whose
 // pallas_call is at line 292), with the same semantics
-// (yt_pass.py:195-269):
+// (yt_pass.py:195-269), which sweeps along axis 0:
 //   * planes i = 0 .. n1-1 in order (n1-1 .. 0 when `backward`);
 //   * base = f[:, i] + sum over the cross-plane neighbours (those with
 //     d0 < 0 first, then d0 > 0, each in k order) of chi[k, i] * nb, where
@@ -16,6 +17,17 @@
 //     into the int32 flag.
 // Built with -fmad=false, so every term is one rounded product and one
 // rounded sum, as in the plain PyTorch version.
+//
+// Along axis 1 the same holds with the grid's axes 0 and 1 exchanged: the
+// planes are (n1, n3), d0 is a displacement's axis-1 step and (d1, d2)
+// its (axis 0, axis 2) steps. The sweep addresses a plane point (u, v) as
+// i * sa + u * su + v in the grid (sa, su: the plane and row strides) and
+// as u * nv + v in the plane-sized exchange buffers. The axis is a
+// template argument: along axis 0 the two in-plane offsets coincide, the
+// tile keeps one table of them, and the instances (yt_gs_kernel) compile
+// to a sweep with no axis to choose; along axis 1 (yt_gs_kernel_axis1) a
+// third table holds the tile's and its halo's grid offsets. z is the
+// contiguous row of a plane either way.
 //
 // Why any schedule of the in-plane solve gives the same bits: the in-plane
 // operator is nilpotent (its dependency graph is a DAG in density-rank
@@ -106,13 +118,14 @@ struct GsDisp {
 // in that thread's registers for the whole plane, so a local iteration
 // reads only the neighbours from shared memory, and the PPT points' loads
 // issue together; PPT = 0 keeps chi and base in shared memory and loops
-// over the points.
-template <typename T, int PM, int NI, int PPT>
+// over the points. AX: the sweep runs along grid axis 1 (else 0, where sa
+// and su are not read).
+template <typename T, int PM, int NI, int PPT, bool AX>
 __device__ __forceinline__ void yt_gs_sweep(
     const T* __restrict__ chi, const T* __restrict__ s,
     const T* __restrict__ f, T* out, int* flag, T* xb0, T* xb1, int* chg,
-    long long* counts, int P, int n1, int n2, int n3, int backward, int h,
-    int TY, int TZ, const GsDisp& g) {
+    long long* counts, int P, int na, int nu, int nv, int sa, int su,
+    int backward, int h, int TY, int TZ, const GsDisp& g) {
     extern __shared__ __align__(16) unsigned char yt_smem[];
     __shared__ int nring;
     constexpr int RP = PPT > 0 ? PPT : 1;   // register slots of a thread
@@ -130,17 +143,21 @@ __device__ __forceinline__ void yt_gs_sweep(
     T* ua = base_s + P * AS;               // P x W, two Jacobi buffers
     T* ub = ua + P * W;
     int* lo_s = (int*)(ub + P * W);        // A: offset in ua (| EDGE), or -1
-    int* yz_s = lo_s + A;                  // A: y * n3 + z
-    int* rw_s = yz_s + A;                  // halo ring: offset in ua
-    int* ryz_s = rw_s + (W - A);           // halo ring: y * n3 + z
+    int* yz_s = lo_s + A;                  // A: y * nv + z
+    int* gyz_s = yz_s + (AX ? A : 0);      // A: y * su + z (axis 0: yz_s)
+    int* rw_s = gyz_s + A;                 // halo ring: offset in ua
+    int* ryz_s = rw_s + (W - A);           // halo ring: y * nv + z
+    int* rgyz_s = ryz_s + (AX ? W - A : 0);   // halo ring: y * su + z
 
-    const int gz = (n3 + TZ - 1) / TZ;
+    // (y, z) below is a plane point (u, v)
+    const int gz = (nv + TZ - 1) / TZ;
     const int y0 = (blockIdx.x / gz) * TY;
     const int z0 = (blockIdx.x % gz) * TZ;
-    const int ny = min(TY, n2 - y0);
-    const int nz = min(TZ, n3 - z0);
-    const int64_t plane = (int64_t)n2 * n3;
-    const int64_t N = (int64_t)n1 * plane;
+    const int ny = min(TY, nu - y0);
+    const int nz = min(TZ, nv - z0);
+    const int64_t plane = (int64_t)nu * nv;   // an exchange buffer's plane
+    const int64_t N = (int64_t)na * plane;
+    const int64_t pstride = AX ? (int64_t)sa : plane;   // the grid's
     const int tid = threadIdx.x;
     const int bd = blockDim.x;
     const bool lead = blockIdx.x == 0 && tid == 0;   // counts, flag slots
@@ -167,7 +184,8 @@ __device__ __forceinline__ void yt_gs_sweep(
                           : -1;
         lo_s[l] = lo;
         if constexpr (HOLD_LO) rlo[j] = lo;
-        yz_s[l] = (y0 + ly) * n3 + z0 + lz;
+        yz_s[l] = (y0 + ly) * nv + z0 + lz;
+        if constexpr (AX) gyz_s[l] = (y0 + ly) * su + z0 + lz;
     }
     __syncthreads();
     for (int w = tid; w < W; w += bd) {
@@ -176,8 +194,11 @@ __device__ __forceinline__ void yt_gs_sweep(
         if (ly >= ny + h || lz >= nz + h) continue;
         if (ly >= 0 && ly < ny && lz >= 0 && lz < nz) continue;
         const int j = atomicAdd(&nring, 1);
+        const int y = yt_wrap(y0 + ly, nu);
+        const int z = yt_wrap(z0 + lz, nv);
         rw_s[j] = w;
-        ryz_s[j] = yt_wrap(y0 + ly, n2) * n3 + yt_wrap(z0 + lz, n3);
+        ryz_s[j] = y * nv + z;
+        if constexpr (AX) rgyz_s[j] = y * su + z;
     }
     __syncthreads();
 
@@ -186,10 +207,10 @@ __device__ __forceinline__ void yt_gs_sweep(
     int changed = 0;
     T rch[RP][NI], rbs[RP][PM], rown[RP][PM];    // PPT: the thread's points
 
-    for (int step = 0; step < n1; ++step) {
-        const int i = backward ? n1 - 1 - step : step;
+    for (int step = 0; step < na; ++step) {
+        const int i = backward ? na - 1 - step : step;
         const int iprev = backward ? i + 1 : i - 1;
-        const int64_t ioff = (int64_t)i * plane;
+        const int64_t ioff = (int64_t)i * pstride;
         const T* prev = (G & 1) ? xb1 : xb0;   // plane iprev, if swept
         T* cur = ua;
         T* nxt = ub;
@@ -201,12 +222,13 @@ __device__ __forceinline__ void yt_gs_sweep(
             if (lo < 0) continue;
             const int o = lo & (YT_GS_EDGE - 1);
             const int yz = yz_s[l];
-            const int y = yz / n3;
-            const int z = yz - y * n3;
+            const int y = yz / nv;
+            const int z = yz - y * nv;
+            const int64_t gyz = ioff + (AX ? gyz_s[l] : yz);
 #pragma unroll
             for (int c = 0; c < NI; ++c) {
                 if (c < ninp) {
-                    const T v = chi[g.ki[c] * N + ioff + yz];
+                    const T v = chi[g.ki[c] * N + gyz];
                     if constexpr (PPT > 0) rch[j][c] = v;
                     else chi_s[c * A + l] = v;
                 }
@@ -214,14 +236,16 @@ __device__ __forceinline__ void yt_gs_sweep(
             T acc[PM];
 #pragma unroll
             for (int p = 0; p < PM; ++p)
-                if (p < P) acc[p] = f[p * N + ioff + yz];
+                if (p < P) acc[p] = f[p * N + gyz];
             for (int c = 0; c < g.ncross; ++c) {
                 const int d0 = g.dc[c][0];
                 const int ii = i + d0;
-                const bool wrapped = ii < 0 || ii >= n1;
+                const bool wrapped = ii < 0 || ii >= na;
                 const bool swept = backward ? d0 > 0 : d0 < 0;
-                const int64_t nyz = (int64_t)yt_wrap(y + g.dc[c][1], n2) * n3
-                                    + yt_wrap(z + g.dc[c][2], n3);
+                const int ny_ = yt_wrap(y + g.dc[c][1], nu);
+                const int nz_ = yt_wrap(z + g.dc[c][2], nv);
+                const int64_t nyz = (int64_t)ny_ * nv + nz_;
+                const int64_t gnyz = AX ? (int64_t)ny_ * su + nz_ : nyz;
                 // the swept side: the previous plane from the exchange
                 // buffer, older ones from out; else the old s
                 const T* src;
@@ -230,11 +254,11 @@ __device__ __forceinline__ void yt_gs_sweep(
                     src = prev + nyz;
                     sp = plane;
                 } else if (swept && !wrapped) {
-                    src = out + (int64_t)ii * plane + nyz;
+                    src = out + (int64_t)ii * pstride + gnyz;
                 } else {
-                    src = s + (int64_t)yt_wrap(ii, n1) * plane + nyz;
+                    src = s + (int64_t)yt_wrap(ii, na) * pstride + gnyz;
                 }
-                const T ch = chi[g.kc[c] * N + ioff + yz];
+                const T ch = chi[g.kc[c] * N + gyz];
 #pragma unroll
                 for (int p = 0; p < PM; ++p)
                     if (p < P) acc[p] = acc[p] + ch * __ldcg(src + p * sp);
@@ -242,7 +266,7 @@ __device__ __forceinline__ void yt_gs_sweep(
 #pragma unroll
             for (int p = 0; p < PM; ++p) {
                 if (p < P) {
-                    const T u = g.ninp ? s[p * N + ioff + yz] : acc[p];
+                    const T u = g.ninp ? s[p * N + gyz] : acc[p];
                     cur[p * W + o] = u;
                     if constexpr (PPT > 0) {
                         rbs[j][p] = acc[p];
@@ -264,10 +288,11 @@ __device__ __forceinline__ void yt_gs_sweep(
             if (lead) chg[(G + 1) % 3] = 0;
             // the halo: the old s in round 0, else last round's buffer
             const T* hsrc = r == 0 ? s + ioff : ((G & 1) ? xb1 : xb0);
+            const int* htab = AX && r == 0 ? rgyz_s : ryz_s;
             const int64_t hp = r == 0 ? N : plane;
             for (int j = tid; j < nring; j += bd) {
                 const int w = rw_s[j];
-                const T* src = hsrc + ryz_s[j];
+                const T* src = hsrc + htab[j];
 #pragma unroll
                 for (int p = 0; p < PM; ++p) {
                     if (p < P) {
@@ -368,7 +393,7 @@ __device__ __forceinline__ void yt_gs_sweep(
             const int lo = HOLD_LO ? rlo[j] : l < A ? lo_s[l] : -1;
             if (lo < 0) continue;
             const int o = lo & (YT_GS_EDGE - 1);
-            const int64_t yz = ioff + yz_s[l];
+            const int64_t yz = ioff + gyz_s[l];
 #pragma unroll
             for (int p = 0; p < PM; ++p) {
                 if (p < P) {
@@ -390,36 +415,52 @@ __device__ __forceinline__ void yt_gs_sweep(
     }
 }
 
-// The kernels. RES: at most one tile point per thread, held in registers
-// (else chi and base in shared memory); the instances with up to
-// YT_GS_MAX_PPT points a thread in registers add that count as a fifth
+// The kernels along axis 0. RES: at most one tile point per thread, held
+// in registers (else chi and base in shared memory); the instances with up
+// to YT_GS_MAX_PPT points a thread in registers add that count as a fifth
 // argument.
 template <typename T, int PM, int NI, bool RES>
 __global__ void __launch_bounds__(YT_GS_THREADS)
 yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
              const T* __restrict__ f, T* out, int* flag, T* xb0, T* xb1,
-             int* chg, long long* counts, int P, int n1, int n2, int n3,
-             int backward, int h, int TY, int TZ, GsDisp g) {
-    yt_gs_sweep<T, PM, NI, RES ? 1 : 0>(chi, s, f, out, flag, xb0, xb1, chg,
-                                        counts, P, n1, n2, n3, backward, h,
-                                        TY, TZ, g);
+             int* chg, long long* counts, int P, int na, int nu, int nv,
+             int sa, int su, int backward, int h, int TY, int TZ, GsDisp g) {
+    yt_gs_sweep<T, PM, NI, RES ? 1 : 0, false>(chi, s, f, out, flag, xb0,
+                                               xb1, chg, counts, P, na, nu,
+                                               nv, sa, su, backward, h, TY,
+                                               TZ, g);
 }
 
 template <typename T, int PM, int NI, bool RES, int PPT>
 __global__ void __launch_bounds__(YT_GS_THREADS)
 yt_gs_kernel(const T* __restrict__ chi, const T* __restrict__ s,
              const T* __restrict__ f, T* out, int* flag, T* xb0, T* xb1,
-             int* chg, long long* counts, int P, int n1, int n2, int n3,
-             int backward, int h, int TY, int TZ, GsDisp g) {
+             int* chg, long long* counts, int P, int na, int nu, int nv,
+             int sa, int su, int backward, int h, int TY, int TZ, GsDisp g) {
     static_assert(RES && PPT > 1 && PPT <= YT_GS_MAX_PPT, "1 < PPT <= max");
-    yt_gs_sweep<T, PM, NI, PPT>(chi, s, f, out, flag, xb0, xb1, chg, counts,
-                                P, n1, n2, n3, backward, h, TY, TZ, g);
+    yt_gs_sweep<T, PM, NI, PPT, false>(chi, s, f, out, flag, xb0, xb1, chg,
+                                       counts, P, na, nu, nv, sa, su,
+                                       backward, h, TY, TZ, g);
+}
+
+// The kernels along axis 1, one for each of the above: PPT 0 (shared
+// memory), 1, or up to YT_GS_MAX_PPT points a thread in registers.
+template <typename T, int PM, int NI, int PPT>
+__global__ void __launch_bounds__(YT_GS_THREADS)
+yt_gs_kernel_axis1(const T* __restrict__ chi, const T* __restrict__ s,
+                   const T* __restrict__ f, T* out, int* flag, T* xb0,
+                   T* xb1, int* chg, long long* counts, int P, int na,
+                   int nu, int nv, int sa, int su, int backward, int h,
+                   int TY, int TZ, GsDisp g) {
+    yt_gs_sweep<T, PM, NI, PPT, true>(chi, s, f, out, flag, xb0, xb1, chg,
+                                      counts, P, na, nu, nv, sa, su,
+                                      backward, h, TY, TZ, g);
 }
 
 template <typename T>
 using GsKernel = void (*)(const T*, const T*, const T*, T*, int*, T*, T*,
                           int*, long long*, int, int, int, int, int, int,
-                          int, int, GsDisp);
+                          int, int, int, int, GsDisp);
 
 // The instance for ninp in-plane neighbours and ppt register-held points a
 // thread (0: the tile in shared memory). A lattice plane's neighbours are
@@ -429,31 +470,38 @@ using GsKernel = void (*)(const T*, const T*, const T*, T*, int*, T*, T*,
 // or in double, the state of more than one point a thread spills out of
 // the 128 registers a thread has at 512 threads); any other count, and
 // larger tiles, take the general one.
-template <typename T, int PM>
+template <typename T, int PM, int NI, int PPT, bool AX>
+static GsKernel<T> inst() {
+    if constexpr (AX) return yt_gs_kernel_axis1<T, PM, NI, PPT>;
+    else if constexpr (PPT > 1) return yt_gs_kernel<T, PM, NI, true, PPT>;
+    else return yt_gs_kernel<T, PM, NI, PPT == 1>;
+}
+
+template <typename T, int PM, bool AX>
 static GsKernel<T> pick(int ninp, int ppt) {
-    if (ppt == 1 && ninp == 4) return yt_gs_kernel<T, PM, 4, true>;
-    if (ppt == 1 && ninp == 6) return yt_gs_kernel<T, PM, 6, true>;
+    if (ppt == 1 && ninp == 4) return inst<T, PM, 4, 1, AX>();
+    if (ppt == 1 && ninp == 6) return inst<T, PM, 6, 1, AX>();
     if constexpr (PM == 2 && sizeof(T) == 4) {
-        if (ppt == 2 && ninp == 4) return yt_gs_kernel<T, PM, 4, true, 2>;
-        if (ppt == 3 && ninp == 4) return yt_gs_kernel<T, PM, 4, true, 3>;
-        if (ppt == 4 && ninp == 4) return yt_gs_kernel<T, PM, 4, true, 4>;
-        if (ppt == 2 && ninp == 6) return yt_gs_kernel<T, PM, 6, true, 2>;
-        if (ppt == 3 && ninp == 6) return yt_gs_kernel<T, PM, 6, true, 3>;
-        if (ppt == 4 && ninp == 6) return yt_gs_kernel<T, PM, 6, true, 4>;
+        if (ppt == 2 && ninp == 4) return inst<T, PM, 4, 2, AX>();
+        if (ppt == 3 && ninp == 4) return inst<T, PM, 4, 3, AX>();
+        if (ppt == 4 && ninp == 4) return inst<T, PM, 4, 4, AX>();
+        if (ppt == 2 && ninp == 6) return inst<T, PM, 6, 2, AX>();
+        if (ppt == 3 && ninp == 6) return inst<T, PM, 6, 3, AX>();
+        if (ppt == 4 && ninp == 6) return inst<T, PM, 6, 4, AX>();
     }
-    if (ppt == 0) return yt_gs_kernel<T, PM, YT_MAXK, false>;
+    if (ppt == 0) return inst<T, PM, YT_MAXK, 0, AX>();
     return nullptr;
 }
 
 template <typename T>
 static int launch(const void* chi, const void* s, const void* f, void* out,
                   void* flag, void* xbuf, void* chg, void* counts, int P,
-                  int n1, int n2, int n3, int backward, int ncross,
+                  int n1, int n2, int n3, int axis, int backward, int ncross,
                   const int* cross, int ninp, const int* inp, int h, int TY,
                   int TZ, int ppt, int smem, void* stream) {
     GsDisp g;
     if (ncross < 0 || ninp < 0 || ncross + ninp > YT_MAXK || h < 0
-        || TY < 1 || TZ < 1)
+        || TY < 1 || TZ < 1 || (axis != 0 && axis != 1))
         return (int)cudaErrorInvalidValue;
     g.ncross = ncross;
     for (int c = 0; c < ncross; ++c) {
@@ -469,6 +517,17 @@ static int launch(const void* chi, const void* s, const void* f, void* out,
             return (int)cudaErrorInvalidValue;   // halo narrower than |d|
     }
     if ((int64_t)P * n2 * n3 == 0 || n1 == 0) return 0;
+    // along axis 1 a plane point's grid offset y * n2 * n3 + z is an int
+    if (axis && (int64_t)n1 * n2 * n3 >= (int64_t)1 << 31)
+        return (int)cudaErrorInvalidValue;
+    // the sweep's planes: na of nu x nv points, at strides sa (plane) and
+    // su (row) in the grid (not const: the launch takes their addresses);
+    // along axis 0 the kernel reads neither
+    int na = axis ? n2 : n1;
+    int nu = axis ? n1 : n2;
+    int nv = n3;
+    int sa = axis ? n3 : n2 * n3;
+    int su = axis ? n2 * n3 : n3;
 
     // the wrapper's plan (ops/yt_pass.py::gs_plan) chose the tile, whether
     // its points stay in registers and the shared memory; this only checks
@@ -483,13 +542,15 @@ static int launch(const void* chi, const void* s, const void* f, void* out,
         return (int)cudaErrorInvalidValue;
     const int64_t AS = ppt ? 0 : A;
     const int64_t need = sizeof(T) * (ninp * AS + P * AS + 2 * P * W)
-                         + sizeof(int) * 2 * W;
+                         + sizeof(int) * (axis ? 3 : 2) * W;
     if (smem < need) return (int)cudaErrorInvalidValue;
-    const int blocks = ((n2 + TY - 1) / TY) * ((n3 + TZ - 1) / TZ);
+    const int blocks = ((nu + TY - 1) / TY) * ((nv + TZ - 1) / TZ);
     // two register widths keep the build short: the charges' P = 2 and
-    // labels' chunks of up to 8
-    GsKernel<T> kernel = P <= 2   ? pick<T, 2>(ninp, ppt)
-                         : P <= 8 ? pick<T, 8>(ninp, ppt)
+    // labels' chunks of up to 8; each has its instances for either axis
+    GsKernel<T> kernel = P <= 2   ? (axis ? pick<T, 2, true>(ninp, ppt)
+                                          : pick<T, 2, false>(ninp, ppt))
+                         : P <= 8 ? (axis ? pick<T, 8, true>(ninp, ppt)
+                                          : pick<T, 8, false>(ninp, ppt))
                                   : nullptr;
     if (!kernel) return (int)cudaErrorInvalidValue;  // P > 8: chunked above
 
@@ -520,12 +581,12 @@ static int launch(const void* chi, const void* s, const void* f, void* out,
     T* out_ = (T*)out;
     int* flag_ = (int*)flag;
     T* xb0_ = (T*)xbuf;
-    T* xb1_ = xb0_ + (int64_t)P * n2 * n3;
+    T* xb1_ = xb0_ + (int64_t)P * nu * nv;
     int* chg_ = (int*)chg;
     long long* counts_ = (long long*)counts;
     void* args[] = {&chi_, &s_, &f_, &out_, &flag_, &xb0_, &xb1_, &chg_,
-                    &counts_, &P, &n1, &n2, &n3, &backward, &h, &TY, &TZ,
-                    &g};
+                    &counts_, &P, &na, &nu, &nv, &sa, &su, &backward, &h,
+                    &TY, &TZ, &g};
     e = cudaLaunchCooperativeKernel((const void*)kernel,
                                     dim3((unsigned)blocks),
                                     dim3(YT_GS_THREADS), args,
@@ -553,25 +614,28 @@ extern "C" int yt_gs_limits(int* out) {
     return (int)e;
 }
 
-// cross: ncross x (k, d0, d1, d2); inp: ninp x (k, d1, d2), both in the
-// summation order; h >= every in-plane |d1|, |d2|; (TY, TZ) the tile; ppt:
+// axis: 0 or 1, the grid axis swept; cross: ncross x (k, d0, d1, d2);
+// inp: ninp x (k, d1, d2), both in the summation order and in the sweep's
+// axes (d0 across the planes); h >= every in-plane |d1|, |d2|; (TY, TZ)
+// the tile of a plane of the sweep; ppt:
 // tile points a thread holds in registers, ceil(TY * TZ / threads) (at
 // most YT_GS_MAX_PPT, above 1 only in float at P <= 2; ninp 4 or 6), or 0
 // for the
 // tile's state in shared memory; smem: dynamic shared memory bytes, at
 // least the layout's.
-// xbuf: 2 * P * n2 * n3 elements of T; chg: 3 int32 zeros; flag: 1 int32,
+// xbuf: 2 * P * (a plane's points) elements of T; chg: 3 int32 zeros;
+// flag: 1 int32,
 // OR-ed (the caller zeroes it); counts: 2 int64, accumulated; P <= 8.
 #define YT_GS_ENTRY(NAME, T)                                                 \
     extern "C" int NAME(const void* chi, const void* s, const void* f,       \
                         void* out, void* flag, void* xbuf, void* chg,        \
                         void* counts, int P, int n1, int n2, int n3,         \
-                        int backward, int ncross, const int* cross,          \
-                        int ninp, const int* inp, int h, int TY, int TZ,     \
-                        int ppt, int smem, void* stream) {                   \
+                        int axis, int backward, int ncross,                  \
+                        const int* cross, int ninp, const int* inp, int h,   \
+                        int TY, int TZ, int ppt, int smem, void* stream) {   \
         return launch<T>(chi, s, f, out, flag, xbuf, chg, counts, P, n1, n2, \
-                         n3, backward, ncross, cross, ninp, inp, h, TY, TZ,  \
-                         ppt, smem, stream);                                 \
+                         n3, axis, backward, ncross, cross, ninp, inp, h,    \
+                         TY, TZ, ppt, smem, stream);                         \
     }
 YT_GS_ENTRY(yt_gs_pass_f32, float)
 YT_GS_ENTRY(yt_gs_pass_f64, double)

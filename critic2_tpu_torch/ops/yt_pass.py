@@ -12,8 +12,10 @@ replace the two Pallas kernels of critic2_tpu/ops/yt_pass.py:
   * yt_pass (csrc/yt_pass.cu): one Jacobi pass out = f + R s;
   * yt_gs_pass (csrc/yt_gs_pass.cu): one plane-ordered Gauss-Seidel sweep
     with an exact in-plane solve, plus an int32 changed-anything flag. The
-    kernel solves each plane by rounds of block-Jacobi over tiles resident
-    in shared memory and registers; `gs_plan` chooses the tile.
+    sweep runs along grid axis 0 or 1 (`axis`): the planes are then (n2,
+    n3) or (n1, n3), so z stays the contiguous row of a plane either way.
+    The kernel solves each plane by rounds of block-Jacobi over tiles
+    resident in shared memory and registers; `gs_plan` chooses the tile.
 
 Each wrapper launches its CUDA kernel for tensors on a CUDA device (and
 raises if it cannot) and computes its plain PyTorch version for tensors on
@@ -63,8 +65,8 @@ def gs_counts() -> dict:
     planes: a round ends in the kernel's only grid barrier),
     local_iters_block0 (block 0's in-tile Jacobi iterations summed over
     planes), and the plan: tile, tiles, pc (integrands per launch), res
-    (the tile points' state held in registers) and ppt (points a thread
-    holds there, 0 without res).
+    (the tile points' state held in registers), ppt (points a thread
+    holds there, 0 without res) and the sweep's axis.
     After the plain version: jacobi_iters (per plane, in sweep order) and
     old_grid_barriers, what the global-Jacobi kernel schedule paid for the
     same sweep (one barrier per in-plane iteration and one per plane)."""
@@ -83,10 +85,17 @@ def _disp(offs, adjoint):
     return [(sgn * int(o[0]), sgn * int(o[1]), sgn * int(o[2])) for o in offs]
 
 
-def _gs_split(offs, adjoint):
+def _gs_split(offs, adjoint, axis=0):
     """(cross-plane [(k, d)] in summation order: d0 < 0 then d0 > 0, and
-    in-plane [(k, d)]), as the Pallas kernel sums them."""
+    in-plane [(k, d)]), as the Pallas kernel sums them. d is in the
+    sweep's axes: d0 across the planes, (d1, d2) in them, so along axis 1
+    a displacement's steps along grid axes 0 and 1 trade places."""
+    if axis not in (0, 1):
+        raise ValueError(f"yt_gs_pass: sweeps along axis 0 or 1, not {axis} "
+                         "(along axis 2 a plane's rows would be strided)")
     disp = list(enumerate(_disp(offs, adjoint)))
+    if axis:
+        disp = [(k, (d[1], d[0], d[2])) for k, d in disp]
     below = [(k, d) for k, d in disp if d[0] < 0]
     above = [(k, d) for k, d in disp if d[0] > 0]
     inplane = [(k, d) for k, d in disp if d[0] == 0]
@@ -110,12 +119,15 @@ def yt_pass_plain(chiP, s, f3, *, offs, adjoint: bool = True):
 
 
 def yt_gs_pass_plain(chiP, s, f3, *, offs, adjoint: bool = True,
-                     backward: bool = False):
-    """One Gauss-Seidel sweep as a Python loop over planes with an in-plane
-    while loop; returns (out, flag (1, 1) int32)."""
+                     backward: bool = False, axis: int = 0):
+    """One Gauss-Seidel sweep along `axis` as a Python loop over planes
+    with an in-plane while loop; returns (out, flag (1, 1) int32)."""
+    cross, inplane = _gs_split(offs, adjoint, axis)
+    result = out = torch.empty_like(s)
+    # along axis 1, views whose axis 1 is the sweep's: plane i is [:, i]
+    if axis:
+        chiP, s, f3, out = (t.transpose(1, 2) for t in (chiP, s, f3, out))
     n1 = s.shape[1]
-    cross, inplane = _gs_split(offs, adjoint)
-    out = torch.empty_like(s)
     changed = torch.zeros((), dtype=torch.bool, device=s.device)
     iters = []
     for i in (range(n1 - 1, -1, -1) if backward else range(n1)):
@@ -142,18 +154,20 @@ def yt_gs_pass_plain(chiP, s, f3, *, offs, adjoint: bool = True,
         changed |= (u != s[:, i]).any()
     _last_counts.clear()
     _last_counts["plain"] = iters
-    return out, changed.to(torch.int32).reshape(1, 1)
+    return result, changed.to(torch.int32).reshape(1, 1)
 
 
-def gs_halo(offs, adjoint: bool = True) -> int:
+def gs_halo(offs, adjoint: bool = True, axis: int = 0) -> int:
     """Halo width of yt_gs_pass's tiles: the largest in-plane |d1|, |d2|."""
-    _, inplane = _gs_split(offs, adjoint)
+    _, inplane = _gs_split(offs, adjoint, axis)
     return max((max(abs(d[1]), abs(d[2])) for _, d in inplane), default=0)
 
 
-def gs_plan(P, n2, n3, h, ninp, itemsize, nsm, smem_max, threads):
-    """Tile plan of yt_gs_pass for a (P, n1, n2, n3) stack; the kernel
-    only checks it against its layout.
+def gs_plan(P, n2, n3, h, ninp, itemsize, nsm, smem_max, threads,
+            axis=0):
+    """Tile plan of yt_gs_pass for P integrands on (n2, n3) planes (the
+    grid's (n2, n3) in a sweep along axis 0, (n1, n3) along axis 1); the
+    kernel only checks it against its layout.
 
     The (n2, n3) plane is cut into gy x gz tiles of ty x tz points (the
     last row and column of tiles may be ragged), one block each, with at
@@ -162,7 +176,8 @@ def gs_plan(P, n2, n3, h, ninp, itemsize, nsm, smem_max, threads):
     grids it takes the fewest points a tile, then the shortest perimeter,
     then the longer rows (z is contiguous). A block keeps two halo'd
     Jacobi words per point and integrand and two int tables per halo'd
-    point in shared memory. A point's in-plane chi, base and value stay
+    point in shared memory (three along axis 1, whose grid offsets are not
+    the exchange buffers'). A point's in-plane chi, base and value stay
     in registers (res) when ninp is 4 or 6 and each of the kernel's
     `threads` holds ppt = ceil(tile points / threads) of them: one at any
     pc, up to GS_MAX_PPT in float32 at pc <= 2 (at wider pc, or in
@@ -190,7 +205,7 @@ def gs_plan(P, n2, n3, h, ninp, itemsize, nsm, smem_max, threads):
             need <= GS_MAX_PPT and pc <= 2 and itemsize == 4))
         held = 0 if res else area   # points with chi and base in smem
         smem = (itemsize * (ninp * held + pc * held + 2 * pc * halo)
-                + 8 * halo)
+                + (12 if axis else 8) * halo)
         if smem <= smem_max:
             return dict(ty=ty, tz=tz, tiles=tiles, pc=pc, res=res,
                         ppt=need if res else 0, smem=smem)
@@ -270,20 +285,25 @@ def yt_pass(chiP, s, f3, *, offs, adjoint: bool = True):
 
 
 def yt_gs_pass(chiP, s, f3, *, offs, adjoint: bool = True,
-               backward: bool = False):
-    """One plane-ordered Gauss-Seidel sweep of s = f + R s along axis 0.
+               backward: bool = False, axis: int = 0):
+    """One plane-ordered Gauss-Seidel sweep of s = f + R s along grid axis
+    `axis` (0 or 1).
 
     Conventions match yt_pass. Returns (out, flag): flag is a (1, 1) int32
     that is nonzero iff some point changed this sweep, so a full sweep
     with flag 0 proves s is the exact fixpoint."""
     if s.device.type == "cpu":
         return yt_gs_pass_plain(chiP, s, f3, offs=offs, adjoint=adjoint,
-                                backward=backward)
+                                backward=backward, axis=axis)
     _check("yt_gs_pass", chiP, s, f3, offs)
     lib = _ext.load("yt_gs_pass")
     P, n1, n2, n3 = s.shape
-    cross, inplane = _gs_split(offs, adjoint)
-    h = gs_halo(offs, adjoint)
+    cross, inplane = _gs_split(offs, adjoint, axis)
+    h = gs_halo(offs, adjoint, axis)
+    nu = n2 if axis == 0 else n1       # the planes' rows
+    if axis and n1 * n2 * n3 >= 2**31:
+        raise ValueError("yt_gs_pass: along axis 1 the kernel takes fewer "
+                         f"than 2^31 points an integrand, got {s.shape}")
     with torch.cuda.device(s.device):
         nsm, smem_max, coop, threads = _gs_limits(lib)
         if not coop:
@@ -291,17 +311,17 @@ def yt_gs_pass(chiP, s, f3, *, offs, adjoint: bool = True,
                                "launch")
         # the kernel's static shared memory (one int) comes out of the
         # same per-block budget
-        plan = gs_plan(P, n2, n3, h, len(inplane), s.element_size(), nsm,
-                       smem_max - 16, threads)
+        plan = gs_plan(P, nu, n3, h, len(inplane), s.element_size(), nsm,
+                       smem_max - 16, threads, axis)
         fn = (lib.yt_gs_pass_f32 if s.dtype == torch.float32
               else lib.yt_gs_pass_f64)
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _IP, _I, _IP, _I, _I, _I, _I, _I, _P]
+                       _I, _I, _IP, _I, _IP, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
         pc = plan["pc"]
         out = torch.empty_like(s)
         flag = torch.zeros((1, 1), dtype=torch.int32, device=s.device)
-        xbuf = torch.empty(2 * pc * n2 * n3, dtype=s.dtype, device=s.device)
+        xbuf = torch.empty(2 * pc * nu * n3, dtype=s.dtype, device=s.device)
         chunks = range(0, P, pc)
         # each launch's round flags start from zeros
         chg = torch.zeros((len(chunks), 3), dtype=torch.int32,
@@ -315,7 +335,8 @@ def yt_gs_pass(chiP, s, f3, *, offs, adjoint: bool = True,
                      f3.data_ptr() + p0 * stride,
                      out.data_ptr() + p0 * stride, flag.data_ptr(),
                      xbuf.data_ptr(), chg[j].data_ptr(), counts.data_ptr(),
-                     min(pc, P - p0), n1, n2, n3, int(backward), len(cross),
+                     min(pc, P - p0), n1, n2, n3, axis, int(backward),
+                     len(cross),
                      cross_a, len(inplane), inp_a, h, plan["ty"],
                      plan["tz"], plan["ppt"], plan["smem"],
                      torch.cuda.current_stream().cuda_stream)
@@ -333,7 +354,7 @@ def yt_gs_pass(chiP, s, f3, *, offs, adjoint: bool = True,
     _last_counts["kernel"] = counts
     _last_counts["plan"] = dict(tile=(plan["ty"], plan["tz"]),
                                 tiles=plan["tiles"], pc=pc, res=plan["res"],
-                                ppt=plan["ppt"])
+                                ppt=plan["ppt"], axis=axis)
     return out, flag
 
 

@@ -13,6 +13,7 @@ from critic2_tpu.crystal.cell import m_x2c_from_cellpar
 from critic2_tpu.crystal.crystal import Crystal, Species
 from critic2_tpu_torch.analysis import yt as tyt
 from critic2_tpu_torch.convert import crystal_from_arrays, crystal_to_arrays
+from critic2_tpu_torch.utils import trace
 
 # the inputs are tiny: one intra-op thread a process, so that parallel
 # test workers do not fight over the cores
@@ -103,26 +104,59 @@ def test_yt_charges_parity_native():
     assert np.max(np.abs(q - np.sort(q_seq))) < 1e-9
 
 
-@pytest.mark.parametrize("cell", [([8.0, 8.0, 8.0], [90, 90, 90]),
-                                  ([8.0, 7.0, 6.5], [75, 80, 70])],
-                         ids=["cubic", "triclinic"])
+CUBIC = ([8.0, 8.0, 8.0], [90, 90, 90])
+TRICLINIC = ([8.0, 7.0, 6.5], [75, 80, 70])
+# anthracene's cell (X23, P2_1/a); at 24 x 17 x 32 its grid lattice has
+# the 8 neighbours of the benchmark's 384 x 270 x 504
+ANTHRACENE = ([15.901, 11.320, 20.967], [90, 125.293, 90])
+
+
+@pytest.mark.parametrize("cell, shape, axis", [
+    (CUBIC, (24, 24, 24), 0),
+    # 6 neighbours of 14 step across the planes and within them, along
+    # either axis: the tie keeps axis 0
+    (TRICLINIC, (14, 12, 10), 0),
+    (ANTHRACENE, (24, 17, 32), 1)], ids=["cubic", "triclinic",
+                                          "anthracene"])
+def test_sweep_axis_follows_the_grid_lattice(cell, shape, axis):
+    c, rho = _problem(shape, cell=cell)
+    rt = tyt.yt_integrate(_port(c), torch.as_tensor(rho))
+    assert tyt._sweep_axis(rt._offs) == axis
+    if cell is ANTHRACENE:
+        assert sorted(rt._offs) == sorted(
+            [(1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 0, 1), (-1, 0, 0),
+             (0, -1, 0), (0, 0, -1), (-1, 0, -1)])
+
+
+@pytest.mark.parametrize("cell", [CUBIC, TRICLINIC, ANTHRACENE],
+                         ids=["cubic", "triclinic", "monoclinic"])
 @pytest.mark.parametrize("adjoint", [True, False])
 def test_kernel_route_matches_jax_xla_sweep(cell, adjoint):
     """_solve_sweep's kernel route (f32 Gauss-Seidel + one f64 refinement
-    with the yt_pass residual), run here with the plain kernels, against
-    the JAX package's f64 Jacobi fixpoint."""
-    shape = (14, 12, 10)
+    with the yt_pass residual), run here with the plain kernels along the
+    axis yt_integrate picks, against the JAX package's f64 Jacobi
+    fixpoint; a solve along axis 1 counts one yt.off_axis_solves."""
+    shape = (24, 17, 32) if cell is ANTHRACENE else (14, 12, 10)
     c, rho = _problem(shape, cell=cell)
     rt = tyt.yt_integrate(_port(c), torch.as_tensor(rho))
     chi, offs = rt._chiP, rt._offs
+    axis = tyt._sweep_axis(offs)
+    assert axis == (cell is ANTHRACENE)
     if adjoint:
         chi32 = tyt._shifted(chi, offs, torch.float32)
         chiR = tyt._shifted(chi, offs, torch.float64)
     else:
         chi32, chiR = chi.to(torch.float32), chi
     f3 = np.stack([np.ones(shape), rho])
-    s = tyt._solve_sweep(chi, chi32, chiR, torch.as_tensor(f3), offs,
-                         adjoint=adjoint)
+    with trace.recording() as rec:
+        s = tyt._solve_sweep(chi, chi32, chiR, torch.as_tensor(f3), offs,
+                             adjoint=adjoint, axis=axis)
+        # the f64 Jacobi route sweeps along no axis
+        tyt._solve_sweep(chi, None, None, torch.as_tensor(f3), offs,
+                         adjoint=adjoint, axis=axis)
+    counters = rec.read()["counters"]
+    assert counters["yt.solves"] == 2
+    assert counters.get("yt.off_axis_solves", 0) == axis
     ref = np.asarray(jyt._xla_sweep(jnp.asarray(chi.numpy()),
                                     jnp.asarray(f3), offs=offs,
                                     adjoint=adjoint))
@@ -131,7 +165,7 @@ def test_kernel_route_matches_jax_xla_sweep(cell, adjoint):
                                atol=1e-10 * np.abs(ref).max())
     # the flag-stepped loop with two refinements reaches the same answer
     s2 = tyt._solve_sweep(chi, chi32, chiR, torch.as_tensor(f3), offs,
-                          adjoint=adjoint, nrefine=2)
+                          adjoint=adjoint, nrefine=2, axis=axis)
     np.testing.assert_allclose(s2.numpy(), ref, rtol=1e-10,
                                atol=1e-10 * np.abs(ref).max())
 

@@ -25,13 +25,18 @@ torch.set_num_threads(1)
 
 CELLS = {"cubic": ([8.0, 8.0, 8.0], [90, 90, 90]),         # K = 6
          "triclinic": ([8.0, 7.0, 6.5], [75, 80, 70])}    # K = 14
+# anthracene's angles (X23, P2_1/a): K = 8, two of the four cross-plane
+# neighbours along axis 0 step within the plane, none along axis 1; only
+# the cases of the sweep axis take it
+LATTICES = dict(CELLS, monoclinic=([15.901, 11.320, 20.967],
+                                   [90, 125.293, 90]))
 SHAPE = (10, 9, 8)
 
 
 def _flux(lattice, seed=5, shape=SHAPE):
     """(offs, chi (K,)+shape f64 numpy, f3 (2,)+shape) for a noisy
     two-Gaussian density on the given lattice."""
-    m = m_x2c_from_cellpar(*CELLS[lattice])
+    m = m_x2c_from_cellpar(*LATTICES[lattice])
     c = crystal_from_arrays(m, [[0.25, 0.25, 0.25], [0.75, 0.7, 0.6]],
                             [0, 0], [("C", 6)])
     g = np.stack(np.meshgrid(*[np.arange(s) / s for s in shape],
@@ -127,6 +132,43 @@ def test_yt_gs_pass_flag_zero_on_fixpoint(lattice, backward):
     _, flag = ops.yt_gs_pass(op, s2, f3t, offs=offs, adjoint=True,
                              backward=backward)
     assert int(flag) == 1
+
+
+def _transposed(t):
+    """t with grid axes 0 and 1 exchanged, contiguous."""
+    return t.transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("lattice", list(LATTICES))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("adjoint", [True, False])
+@pytest.mark.parametrize("backward", [False, True])
+def test_yt_gs_pass_along_axis_1_is_axis_0_on_the_transposed_stack(
+        lattice, dtype, adjoint, backward):
+    offs, chi, f3 = _flux(lattice)
+    tdt = getattr(torch, dtype)
+    op = _operand(chi, offs, adjoint, tdt)
+    f = torch.as_tensor(f3, dtype=tdt)
+    s = torch.as_tensor(np.random.default_rng(3).random(f3.shape), dtype=tdt)
+    out, flag = ops.yt_gs_pass(op, s, f, offs=offs, adjoint=adjoint,
+                               backward=backward, axis=1)
+    # the plain version of a sweep along axis 0 of the stack whose axes 0
+    # and 1 are exchanged, with the offsets' steps exchanged alike
+    swapped = tuple((o[1], o[0], o[2]) for o in offs)
+    ref, ref_flag = ops.yt_gs_pass_plain(
+        _transposed(op), _transposed(s), _transposed(f), offs=swapped,
+        adjoint=adjoint, backward=backward)
+    assert out.is_contiguous() and out.shape == s.shape
+    assert torch.equal(out, _transposed(ref))
+    assert int(flag) == int(ref_flag) == 1
+    assert len(ops.gs_counts()["jacobi_iters"]) == SHAPE[1]
+    # the in-plane neighbours of the sweep along axis 1
+    _, inplane = ops._gs_split(offs, adjoint, axis=1)
+    assert len(inplane) == {"cubic": 4, "triclinic": 6,
+                            "monoclinic": 6}[lattice]
+    assert ops.gs_halo(offs, adjoint, axis=1) == 1
+    with pytest.raises(ValueError, match="axis 0 or 1"):
+        ops.yt_gs_pass(op, s, f, offs=offs, adjoint=adjoint, axis=2)
 
 
 def test_yt_gs_pass_one_sweep_semantics():
@@ -271,8 +313,9 @@ LOCAL_CAP = _kernel_define("YT_GS_LOCAL_CAP")
 
 
 def _tile_round_sweep(chiP, s, f3, offs, adjoint, backward, tile,
-                      cap=LOCAL_CAP):
-    """One sweep by the CUDA kernel's schedule, emulated on the CPU.
+                      cap=LOCAL_CAP, axis=0):
+    """One sweep along `axis` by the CUDA kernel's schedule, emulated on
+    the CPU.
 
     Each plane's in-plane system is solved by rounds of block-Jacobi over
     (ty, tz) tiles (ragged at the far edges): in a round every tile
@@ -280,11 +323,16 @@ def _tile_round_sweep(chiP, s, f3, offs, adjoint, backward, tile,
     start, wrapped periodically) held fixed until it is stationary or has
     taken `cap` iterations; the rounds end when every tile is stationary
     and no point within h of a tile's edge changed. All tiles iterate
-    together: a stationary tile's Jacobi step is a no-op. Returns (out,
-    flag, rounds per plane in sweep order)."""
+    together: a stationary tile's Jacobi step is a no-op. Along axis 1 the
+    planes are (n1, n3), (y, z) below their axes. Returns (out, flag,
+    rounds per plane in sweep order)."""
+    cross, inplane = ops._gs_split(offs, adjoint, axis)
+    h = ops.gs_halo(offs, adjoint, axis)
+    result = out = torch.empty_like(s)
+    # along axis 1, views whose axis 1 is the sweep's: plane i is [:, i]
+    if axis:
+        chiP, s, f3, out = (t.transpose(1, 2) for t in (chiP, s, f3, out))
     P, n1, n2, n3 = s.shape
-    cross, inplane = ops._gs_split(offs, adjoint)
-    h = ops.gs_halo(offs, adjoint)
     ty, tz = tile
     y = torch.arange(n2)[:, None]
     z = torch.arange(n3)[None, :]
@@ -303,7 +351,6 @@ def _tile_round_sweep(chiP, s, f3, offs, adjoint, backward, tile,
         flat = (yy % n2) * n3 + zz % n3
         nbmap.append((flat + torch.where(inside, 0, n2 * n3)).reshape(-1))
     nbmap = torch.stack(nbmap) if inplane else None
-    out = torch.empty_like(s)
     changed = False
     rounds = []
     for i in (range(n1 - 1, -1, -1) if backward else range(n1)):
@@ -336,7 +383,7 @@ def _tile_round_sweep(chiP, s, f3, offs, adjoint, backward, tile,
         rounds.append(nround)
         out[:, i] = u
         changed |= bool((u != s[:, i]).any())
-    return out, int(changed), rounds
+    return result, int(changed), rounds
 
 
 def _case_input(lattice, P, dtype, adjoint):
@@ -348,27 +395,34 @@ def _case_input(lattice, P, dtype, adjoint):
     return offs, _operand(chi, offs, adjoint, tdt), f
 
 
+# (P, tile, cap): (3, 4) divides the (9, 8) plane, (4, 3) leaves ragged
+# tiles on both axes, (9, 8) is one tile whose halo wraps onto itself; a
+# cap of 2 local iterations a round stands for the kernel's cap on planes
+# whose chains are longer than it
+TILE_CASES = [(1, (4, 3), LOCAL_CAP), (2, (3, 4), LOCAL_CAP),
+              (8, (4, 3), 2), (2, (9, 8), 2)]
+
+
 @pytest.mark.parametrize("lattice", list(CELLS))
 @pytest.mark.parametrize("adjoint", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-# (3, 4) divides the (9, 8) plane, (4, 3) leaves ragged tiles on both axes,
-# (9, 8) is one tile whose halo wraps onto itself; a cap of 2 local
-# iterations a round stands for the kernel's cap on planes whose chains are
-# longer than it
-@pytest.mark.parametrize("P, tile, cap", [
-    (1, (4, 3), LOCAL_CAP), (2, (3, 4), LOCAL_CAP),
-    (8, (4, 3), 2), (2, (9, 8), 2)])
+# each case along axis 0, then along axis 1, whose planes are (10, 8):
+# there (9, 8) leaves a ragged second tile
+@pytest.mark.parametrize("P, tile, cap, axis", [
+    pytest.param(P, tile, cap, axis,
+                 id=f"{P}-tile{j}-{cap}" + ("-axis1" if axis else ""))
+    for axis in (0, 1) for j, (P, tile, cap) in enumerate(TILE_CASES)])
 def test_tile_rounds_reach_the_plain_sweeps_bitwise(lattice, adjoint, dtype,
-                                                    P, tile, cap):
+                                                    P, tile, cap, axis):
     offs, op, f = _case_input(lattice, P, dtype, adjoint)
     s_t = s_p = f
     for sweep in range(3):
         backward = sweep % 2 == 1
         s_t, flag_t, rounds = _tile_round_sweep(op, s_t, f, offs, adjoint,
-                                                backward, tile, cap)
+                                                backward, tile, cap, axis)
         s_p, flag_p = ops.yt_gs_pass_plain(op, s_p, f, offs=offs,
                                            adjoint=adjoint,
-                                           backward=backward)
+                                           backward=backward, axis=axis)
         assert torch.equal(s_t, s_p), f"sweep {sweep}"
         assert flag_t == int(flag_p), f"sweep {sweep}"
         jacobi = ops.gs_counts()["jacobi_iters"]
@@ -433,6 +487,11 @@ def test_gs_plan_fits_the_card(P, n2, n3, ninp, itemsize):
         ninp * held + plan["pc"] * (held + 2 * (ty + 2) * (tz + 2))
     ) + 8 * (ty + 2) * (tz + 2)
     assert plan["smem"] <= H100["smem_max"]
+    # along axis 1 a third int table: the grid offsets of the same tile
+    plan1 = ops.gs_plan(P, n2, n3, 1, ninp, itemsize, **H100, axis=1)
+    if (plan1["ty"], plan1["tz"], plan1["pc"]) == (ty, tz, plan["pc"]):
+        assert plan1["smem"] == plan["smem"] + 4 * (ty + 2) * (tz + 2)
+    assert plan1["smem"] <= H100["smem_max"]
     if P * n2 * n3 >= 2 * 256 * 256:
         assert plan["tiles"] >= 120        # the card is filled
     if (n2, n3) == (256, 256) and itemsize == 4:
