@@ -878,9 +878,9 @@ def main_shape_phase(sl):
     ref = yt._solve_sweep(res._chiP, chi32, chi64, f3, offs)
     t_ref = cuda_ms(lambda: yt._solve_sweep(res._chiP, chi32, chi64, f3,
                                             offs), 1, warm=0)
-    d64 = yt._kernel_sweep(chi64, f3, offs, True)
-    t_d64 = cuda_ms(lambda: yt._kernel_sweep(chi64, f3, offs, True), 1,
-                    warm=0)
+    d64, _ = yt._f32_fixpoint(chi64, f3, offs, True, 0, stepped=True)
+    t_d64 = cuda_ms(lambda: yt._f32_fixpoint(chi64, f3, offs, True, 0,
+                                             stepped=True), 1, warm=0)
     i1, i2, i3 = res._index(res.iattr)
     dq = float((d64[1, i1, i2, i3] - ref[1, i1, i2, i3]).abs().max()) \
         * sl["dv"]

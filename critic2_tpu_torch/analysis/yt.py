@@ -24,10 +24,7 @@ The solve (`_solve_sweep`) takes one of two routes:
   * tensors on the CPU: the f64 Jacobi fixpoint by torch.rolls
     (`_xla_sweep`, named after its JAX counterpart).
 
-Tie-breaking at plateaus replicates the reference: "uphill" means lower
-rank in the stable descending sort, and a point whose positive-flux set is
-empty attaches all its weight to its lowest-ranked uphill neighbour
-(src/yt@proc.f90:149-156).
+The basin rule, ties and plateaus included, is `_uphill_flux`.
 """
 from __future__ import annotations
 
@@ -83,19 +80,21 @@ def _sweep_axis(offs) -> int:
     return 1 if mixed(1) < mixed(0) else 0
 
 
-def _flux_tensors(rho3, wts, offs):
-    """Per-neighbour normalized uphill flux chi (K,)+shape, plus the
-    attractor mask. chi_k[x] is the weight fraction point x sends to its
-    neighbour x+o_k; rows sum to 1 except at attractors (all-zero).
+def _uphill_flux(rho, idx, wts, offs, neighbour):
+    """Per-neighbour normalized uphill flux chi (K,)+shape of the points
+    rho (global flat indices idx), and their attractor mask: the YT basin
+    rule. neighbour(o) returns (rho, idx) at x + o for every point x.
+    chi_k[x] is the weight fraction x sends to x+o_k; rows sum to 1 except
+    at attractors (all-zero).
 
     "Uphill" is the stable-descending-sort order without the sort:
-    rank_k < rank_x iff rho_k > rho_x, or rho_k == rho_x and idx_k < idx_x,
-    so the ranks collapse to K rolled compares."""
-    shape = tuple(rho3.shape)
-    dev, dt = rho3.device, rho3.dtype
+    rank_k < rank_x iff rho_k > rho_x, or rho_k == rho_x and idx_k < idx_x
+    (global indices, so a slab's halo planes compare as the whole grid's).
+    A point whose positive-flux set is empty attaches all its weight to
+    its lowest-ranked uphill neighbour (src/yt@proc.f90:149-156)."""
+    shape = tuple(rho.shape)
+    dev, dt = rho.device, rho.dtype
     K = len(offs)
-    idx3 = torch.arange(int(np.prod(shape)), dtype=torch.int64,
-                        device=dev).reshape(shape)
     zero = torch.zeros((), dtype=dt, device=dev)
     out = torch.empty((K,) + shape, dtype=dt, device=dev)
     anyhi = torch.zeros(shape, dtype=torch.bool, device=dev)
@@ -105,10 +104,9 @@ def _flux_tensors(rho3, wts, offs):
     best_idx = torch.zeros(shape, dtype=torch.int64, device=dev)
     best_k = torch.full(shape, -1, dtype=torch.int64, device=dev)
     for k, o in enumerate(offs):
-        rho_k = torch.roll(rho3, _neg(o), _DIMS)
-        idx_k = torch.roll(idx3, _neg(o), _DIMS)
-        hi = (rho_k > rho3) | ((rho_k == rho3) & (idx_k < idx3))
-        chi = torch.where(hi, float(wts[k]) * (rho_k - rho3), zero)
+        rho_k, idx_k = neighbour(o)
+        hi = (rho_k > rho) | ((rho_k == rho) & (idx_k < idx))
+        chi = torch.where(hi, float(wts[k]) * (rho_k - rho), zero)
         chi = torch.clamp(chi, min=0.0)
         out[k] = chi
         tot = tot + chi
@@ -125,6 +123,16 @@ def _flux_tensors(rho3, wts, offs):
         fallback = torch.where(best_k == k, one, zero)
         out[k] = torch.where(haspos, out[k] * inv, fallback)
     return out, ~anyhi
+
+
+def _flux_tensors(rho3, wts, offs):
+    """`_uphill_flux` of the whole periodic grid rho3: its neighbours by
+    3-D rolls."""
+    idx3 = torch.arange(int(np.prod(rho3.shape)), dtype=torch.int64,
+                        device=rho3.device).reshape(rho3.shape)
+    return _uphill_flux(rho3, idx3, wts, offs,
+                        lambda o: (torch.roll(rho3, _neg(o), _DIMS),
+                                   torch.roll(idx3, _neg(o), _DIMS)))
 
 
 def _shifted(chi, offs, dtype):
@@ -178,68 +186,64 @@ def _gs_pairs(chiP32, s, f3, offs, adjoint, npair, axis=0):
     return s, flag
 
 
-def _kernel_sweep(chiP32, f3, offs, adjoint, axis=0):
-    """f32 fixpoint by Gauss-Seidel sweep pairs along `axis` until a pair
-    changes nothing: 4 pairs first (they resolve typical atomic-basin
-    fields), then 2 at a time, one flag read per batch."""
-    s, flag = _gs_pairs(chiP32, f3, f3, offs, adjoint, npair=4, axis=axis)
+def _f32_fixpoint(chiP32, rhs32, offs, adjoint, axis, stepped):
+    """Gauss-Seidel sweep pairs along `axis` from s = rhs32 towards the
+    fixpoint of s = rhs32 + R s: 4 pairs (they resolve typical
+    atomic-basin fields), then, if `stepped`, 2 at a time until a pair
+    changes nothing, one flag read a batch. Returns (s, the last pair's
+    changed-anything flag as a device tensor)."""
+    s, flag = _gs_pairs(chiP32, rhs32, rhs32, offs, adjoint, npair=4,
+                        axis=axis)
     npairs = 4
-    maxpair = sum(f3.shape[1:]) + 16
-    while True:
+    while stepped:
         trace.count("host_syncs")
-        if int(flag) == 0 or npairs >= maxpair:
-            return s
-        s, flag = _gs_pairs(chiP32, s, f3, offs, adjoint, npair=2,
+        if int(flag) == 0 or npairs >= sum(rhs32.shape[1:]) + 16:
+            break
+        s, flag = _gs_pairs(chiP32, s, rhs32, offs, adjoint, npair=2,
                             axis=axis)
         npairs += 2
+    return s, flag
 
 
-def _solve_sweep(chiP, chiP32, chiR, f3, offs, adjoint=True, nrefine=1,
-                 rtol=1e-11, axis=0):
+def _refined(chiP32, chiR, f3, offs, adjoint, axis, stepped):
+    """s = f3 + R s at f64 accuracy by one step of iterative refinement:
+    an f32 solve s1, the f64 residual r = f3 + R s1 - s1 by yt_pass with
+    chiR, an f32 correction e from r, each solve by `_f32_fixpoint`.
+    Returns (s1 + e, (the two solves' flags, device tensors))."""
+    f32 = f3.to(torch.float32)
+    s1, flag1 = _f32_fixpoint(chiP32, f32, offs, adjoint, axis, stepped)
+    s1 = s1.to(f3.dtype)
+    r = yt_pass(chiR, s1, f3, offs=offs, adjoint=adjoint) - s1
+    e, flag2 = _f32_fixpoint(chiP32, r.to(torch.float32), offs, adjoint,
+                             axis, stepped)
+    return s1 + e.to(f3.dtype), (flag1, flag2)
+
+
+def _solve_sweep(chiP, chiP32, chiR, f3, offs, adjoint=True, axis=0):
     """Solve (I - R) s = f at f64 accuracy.
 
     chiP32 None: the f64 Jacobi fixpoint (_xla_sweep). Otherwise the kernel
-    route: f32 Gauss-Seidel solves along grid axis `axis` (chiP32: f32
-    flux, shifted for the adjoint) with f64 iterative refinement, the
-    residual r = f + R s - s evaluated by yt_pass with chiR (the f64 flux,
-    shifted for the adjoint); a kernel-route solve along an axis other
-    than 0 counts one `yt.off_axis_solves`.
-    The optimistic path queues solve + residual + correction solve and
-    reads both convergence flags in ONE sync; when a flag trips it falls
-    back to the flag-stepped loop (one `yt.fallbacks` count a trip)."""
+    route, `_refined` along grid axis `axis` (chiP32: f32 flux, chiR: f64
+    flux, both shifted for the adjoint); a kernel-route solve along an
+    axis other than 0 counts one `yt.off_axis_solves`.
+    The optimistic schedule (4 + 4 pairs) reads both convergence flags in
+    ONE sync; when a flag trips, the flag-stepped schedule solves again
+    from f (one `yt.fallbacks` count a trip)."""
     trace.count("yt.solves")
     with trace.span("yt.solve"):
         if chiP32 is None:
             return _xla_sweep(chiP, f3, offs, adjoint=adjoint)
         if axis:
             trace.count("yt.off_axis_solves")
-        if nrefine == 1:
-            f32a = f3.to(torch.float32)
-            s1, flag1 = _gs_pairs(chiP32, f32a, f32a, offs, adjoint, npair=4,
-                                  axis=axis)
-            s1 = s1.to(f3.dtype)
-            r = yt_pass(chiR, s1, f3, offs=offs, adjoint=adjoint) - s1
-            r32 = r.to(torch.float32)
-            e, flag2 = _gs_pairs(chiP32, r32, r32, offs, adjoint, npair=4,
-                                 axis=axis)
-            out = s1 + e.to(f3.dtype)
-            trace.count("host_syncs")
-            if int((flag1 != 0) | (flag2 != 0)) == 0:   # one host sync
-                return out
-            trace.count("yt.fallbacks")
+        out, (flag1, flag2) = _refined(chiP32, chiR, f3, offs, adjoint,
+                                       axis, stepped=False)
+        trace.count("host_syncs")
+        if int((flag1 != 0) | (flag2 != 0)) == 0:   # one host sync
+            return out
+        trace.count("yt.fallbacks")
         with trace.span("yt.fallback"):
-            s = _kernel_sweep(chiP32, f3.to(torch.float32), offs,
-                              adjoint, axis).to(f3.dtype)
-            for i in range(nrefine):
-                r = yt_pass(chiR, s, f3, offs=offs, adjoint=adjoint) - s
-                if i > 0:
-                    trace.count("host_syncs", 2)
-                    fscale = float(f3.abs().max()) + 1e-300
-                    if float(r.abs().max()) <= rtol * fscale:
-                        break
-                s = s + _kernel_sweep(chiP32, r.to(torch.float32), offs,
-                                      adjoint, axis).to(f3.dtype)
-            return s
+            return _refined(chiP32, chiR, f3, offs, adjoint, axis,
+                            stepped=True)[0]
 
 
 @dataclass
@@ -416,30 +420,27 @@ def yt_f32_guarded(crystal, rho, guard_tol: float = 1e-6,
     shape = tuple(int(s) for s in rho64.shape)
     N = int(np.prod(shape))
     res32 = yt_integrate(crystal, rho64.to(torch.float32))
-
-    offs_np, wts_np = _grid_ws_neighbors(crystal, shape)
-    offs = tuple(tuple(int(v) for v in o) for o in offs_np)
-    chi64, isattr64 = _flux_tensors(rho64, wts_np, offs)
-    nattr64 = int(isattr64.sum())
+    res64 = yt_integrate(crystal, rho64)
 
     dv = float(np.abs(np.linalg.det(np.asarray(crystal.m_x2c)))) / N
-    audit = {"dtype": "f32", "nattr32": res32.nattr, "nattr64": nattr64,
+    audit = {"dtype": "f32", "nattr32": res32.nattr, "nattr64": res64.nattr,
              "tripped": False, "reason": "", "drift_est_e": float("nan")}
 
     def fallback(reason):
         audit["tripped"] = True
         audit["reason"] = reason
         audit["dtype"] = "f64"
-        return yt_integrate(crystal, rho64), audit
+        return res64, audit
 
-    if nattr64 != res32.nattr:
+    if res64.nattr != res32.nattr:
         return fallback(f"attractor count changed "
-                        f"({res32.nattr} f32 vs {nattr64} f64)")
+                        f"({res32.nattr} f32 vs {res64.nattr} f64)")
 
     # adjoint mass flow of rho through the f32 partition
     f3 = rho64.reshape((1,) + shape)
     s = res32._solve(f3, adjoint=True)
-    dRs = (_apply_R(chi64, s, offs, adjoint=True)
+    offs = res64._offs
+    dRs = (_apply_R(res64._chiP, s, offs, adjoint=True)
            - _apply_R(res32._chiP.to(torch.float64), s, offs, adjoint=True))
     e3 = res32._solve(dRs, adjoint=True)[0]
     i1, i2, i3 = res32._index(res32.iattr)

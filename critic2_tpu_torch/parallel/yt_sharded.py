@@ -9,11 +9,10 @@ is one solution order of the linear recurrence
 
 over the uphill Wigner-Seitz facet neighbours k of i - an acyclic system,
 so any fixpoint iteration reaches the same weights exactly. Every space
-shard holds its slab of the normalized flux tensors chi (the semantics of
-analysis/yt._flux_tensors: plateau points attach their whole weight to
-the lexicographically best (max rho, min global index) uphill neighbour)
-and of the solution, with halo planes exchanged along the sharded axis
-(parallel/mesh.halo_pad).
+shard holds its slab of the normalized flux tensors chi (the rule of
+analysis/yt._uphill_flux, fed from the slab padded with its neighbours'
+planes) and of the solution, with halo planes exchanged along the sharded
+axis (parallel/mesh.halo_pad).
 
 Charges come from the ADJOINT solve s = f + R^T s, batched over the
 integrands; labels, weight grids and basin supports from FORWARD solves
@@ -255,48 +254,6 @@ class _ShardedSweeper:
         return s
 
 
-def _flux_slab(rp, ip, H, m, wts, offs):
-    """Normalized flux (K, m, n2, n3) and attractor mask of one slab, from
-    its H-padded rho `rp` and global flat index `ip`: the semantics of
-    analysis/yt._flux_tensors ("uphill" is (rho_k, -idx_k) >lex (rho,
-    -idx), the tie-break on GLOBAL indices, so the halo planes that wrap
-    around the grid compare as they do on one device)."""
-    r0, i0 = rp[H:H + m], ip[H:H + m]
-    shape = tuple(r0.shape)
-    dev, dt = rp.device, rp.dtype
-    K = len(offs)
-    zero = torch.zeros((), dtype=dt, device=dev)
-    out = torch.empty((K,) + shape, dtype=dt, device=dev)
-    anyhi = torch.zeros(shape, dtype=torch.bool, device=dev)
-    tot = torch.zeros(shape, dtype=dt, device=dev)
-    best_rho = torch.full(shape, -float("inf"), dtype=dt, device=dev)
-    best_idx = torch.zeros(shape, dtype=torch.int64, device=dev)
-    best_k = torch.full(shape, -1, dtype=torch.int64, device=dev)
-    for k, o in enumerate(offs):
-        # x + o: rows H + o_0 .. (inside the padded slab, |o_0| <= H)
-        sh = (-o[1], -o[2])
-        rho_k = torch.roll(rp[H + o[0]:H + o[0] + m], sh, (1, 2))
-        idx_k = torch.roll(ip[H + o[0]:H + o[0] + m], sh, (1, 2))
-        hi = (rho_k > r0) | ((rho_k == r0) & (idx_k < i0))
-        chi = torch.clamp(torch.where(hi, float(wts[k]) * (rho_k - r0),
-                                      zero), min=0.0)
-        out[k] = chi
-        tot = tot + chi
-        anyhi |= hi
-        upd = hi & ((rho_k > best_rho)
-                    | ((rho_k == best_rho) & (idx_k < best_idx)))
-        best_rho = torch.where(upd, rho_k, best_rho)
-        best_idx = torch.where(upd, idx_k, best_idx)
-        best_k = torch.where(upd, k, best_k)
-    haspos = tot > 0
-    inv = torch.where(haspos, 1.0 / torch.where(haspos, tot, 1.0), zero)
-    one = torch.ones((), dtype=dt, device=dev)
-    for k in range(K):
-        fallback = torch.where(best_k == k, one, zero)
-        out[k] = torch.where(haspos, out[k] * inv, fallback)
-    return out, ~anyhi
-
-
 def yt_integrate_sharded(mesh, crystal, rho, fields_flat=None,
                          max_iters: int | None = None,
                          result: bool = False, method: str = "gs"):
@@ -310,7 +267,7 @@ def yt_integrate_sharded(mesh, crystal, rho, fields_flat=None,
     result=True, a ShardedYTResult that plugs into
     analysis.integration.intgrid in place of YTResult.
     """
-    from ..analysis.yt import _grid_ws_neighbors
+    from ..analysis.yt import _grid_ws_neighbors, _uphill_flux
 
     devs = mesh.space_devices
     rho = torch.as_tensor(rho, device=devs[0])
@@ -333,8 +290,16 @@ def yt_integrate_sharded(mesh, crystal, rho, fields_flat=None,
     islabs = [torch.arange(r * m * n2 * n3, (r + 1) * m * n2 * n3,
                            dtype=torch.int64, device=d).reshape(m, n2, n3)
               for r, d in enumerate(devs)]
+    def slab_flux(rp, ip):
+        # x + o: rows H + o_0 .. of the padded slab (|o_0| <= H)
+        return _uphill_flux(
+            rp[H:H + m], ip[H:H + m], wts, offs,
+            lambda o: tuple(torch.roll(p[H + o[0]:H + o[0] + m],
+                                       (-o[1], -o[2]), (1, 2))
+                            for p in (rp, ip)))
+
     chi, is_attr = zip(*(
-        _flux_slab(rp, ip, H, m, wts, offs)
+        slab_flux(rp, ip)
         for rp, ip in zip(halo_pad(rslabs, H, H), halo_pad(islabs, H, H))))
 
     # small host transfers only: the bool mask and the attractor rhos

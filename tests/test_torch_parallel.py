@@ -17,6 +17,7 @@ from critic2_tpu.parallel.yt_sharded import \
     yt_integrate_sharded as jyt_sharded
 from critic2_tpu_torch import System
 from critic2_tpu_torch.analysis.integration import _rasterize_field, intgrid
+from critic2_tpu_torch.analysis import yt as tyt
 from critic2_tpu_torch.analysis.yt import yt_integrate
 from critic2_tpu_torch.convert import crystal_from_arrays
 from critic2_tpu_torch.crystal.cell import m_x2c_from_cellpar
@@ -255,6 +256,23 @@ def test_yt_sharded_matches_single_device(rng):
     np.testing.assert_allclose(q, qr[:, perm], rtol=1e-10, atol=1e-10)
     assert abs(q[0].sum() - rho.sum()) < 1e-10
     np.testing.assert_array_equal(np.argsort(perm)[res.labels], labels)
+
+
+@pytest.mark.parametrize("ndev", [2, 4, 8])
+def test_sharded_flux_is_the_whole_grid_flux_bitwise(ndev, rng):
+    """The slabs' flux, built from halo-padded slabs, is the whole grid's
+    bit for bit, and so is the attractor set: one basin rule, ties
+    included."""
+    c, rho, _ = _yt_problem(rng)
+    sh = yt_integrate_sharded(make_mesh(ndev, device=CPU), c, rho,
+                              result=True)
+    offs, wts = tyt._grid_ws_neighbors(c, rho.shape)
+    chi, is_attr = tyt._flux_tensors(torch.as_tensor(rho), wts,
+                                     tuple(map(tuple, offs.tolist())))
+    assert len(sh._solver.chi) == mesh_shape_for(ndev)[0]
+    assert torch.equal(torch.cat(sh._solver.chi, dim=1), chi)
+    np.testing.assert_array_equal(np.sort(sh.iattr),
+                                  np.flatnonzero(is_attr.numpy()))
 
 
 def test_yt_sharded_nacl_32_matches_single_device():

@@ -218,9 +218,10 @@ def test_kernel_route_counts_the_trip_of_the_optimistic_schedule(
     """_solve_sweep's kernel route, run with the plain kernels as in
     tests/test_torch_yt.py::test_kernel_route_matches_jax_xla_sweep, on a
     field that needs more than 4 pairs: one solve, one trip, the
-    flag-stepped loop under its own span inside the solve's, and one
-    host sync a flag read (the plain kernels' own compares stand for work
-    that the CUDA kernels do on the device)."""
+    flag-stepped loop under its own span inside the solve's, one host
+    sync a flag read (the plain kernels' own compares stand for work that
+    the CUDA kernels do on the device), and the yt_gs_pass launches of the
+    schedule."""
     c, rho = _zigzag()
     rt = tyt.yt_integrate(c, torch.as_tensor(rho))
     assert rt.nattr == 1
@@ -232,12 +233,18 @@ def test_kernel_route_counts_the_trip_of_the_optimistic_schedule(
     to_int = torch.Tensor.__int__
     monkeypatch.setattr(torch.Tensor, "__int__",
                         lambda t: flag_reads.append(t) or to_int(t))
+    sweeps = []
+    gs_pass = tyt.yt_gs_pass
+    monkeypatch.setattr(tyt, "yt_gs_pass",
+                        lambda *a, **kw: sweeps.append(1) or gs_pass(*a, **kw))
     with trace.recording() as rec:
         s = tyt._solve_sweep(chi, chi32, chiR, f3, offs, adjoint=True)
     out = rec.read()
     assert out["counters"] == {"yt.solves": 1, "yt.fallbacks": 1,
                                "host_syncs": len(flag_reads)}
     assert len(flag_reads) > 3
+    # the schedule: 16 optimistic sweeps, then the stepped solves from f
+    assert len(sweeps) == 48
     assert [(sp[0], sp[3]) for sp in out["spans"]] == [
         ("yt.solve", -1), ("yt.fallback", 0)]
     ref = tyt._xla_sweep(chi, f3, offs, adjoint=True)
@@ -248,8 +255,10 @@ def test_kernel_route_counts_the_trip_of_the_optimistic_schedule(
     rt2 = tyt.yt_integrate(sy.crystal, sy.ref.grid.f)
     chi, offs = rt2._chiP, rt2._offs
     f3 = torch.stack([torch.ones_like(sy.ref.grid.f), sy.ref.grid.f])
+    sweeps.clear()
     with trace.recording() as rec:
         tyt._solve_sweep(chi, tyt._shifted(chi, offs, torch.float32),
                          tyt._shifted(chi, offs, torch.float64), f3, offs,
                          adjoint=True)
     assert rec.read()["counters"] == {"yt.solves": 1, "host_syncs": 1}
+    assert len(sweeps) == 16
