@@ -32,7 +32,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      adjoint f32 pair (P = 2) its time, grid barriers, block 0's local
      iterations and tile, the pairs each axis takes to a zero flag, and
      the refined solve of each axis (launches, time, and its values at
-     the 48 attractors against the other axis's, 1e-12 relative).
+     the 48 attractors against the other axis's, 1e-12 relative), and
+     along axis 1 the time and grid barriers of each of that solve's
+     sweeps, timed one by one, its result bitwise the untimed solve's.
      yt_pass must match bitwise (its relative error printed); yt_gs_pass
      sweep pairs are iterated to a zero flag and the fixpoints must be
      bitwise equal and every flag the same;
@@ -571,6 +573,9 @@ def anthracene_axis_leg(dev):
             f"({out[axis]['pairs_ms']:.1f} ms); refined solve "
             f"{out[axis]['solve_ms']:.1f} ms, "
             f"{out[axis]['solve_launches']} yt_gs_pass launches")
+        if axis == 1:
+            out[axis]["stepped_sweeps"] = timed_solve_sweeps(
+                res, chi32, chi64, f3, offs, axis, sol, tag)
         del s, sol
     gap = rel_err(out[1].pop("attractors"), out[0].pop("attractors"))
     check(gap < 1e-12, f"{tag}: the two axes' solves differ at the "
@@ -583,6 +588,50 @@ def anthracene_axis_leg(dev):
                                            for a, v in out.items()}}}))
     del res, chi32, chi64, f3, f32, rho
     torch.cuda.empty_cache()
+
+
+def timed_solve_sweeps(res, chi32, chi64, f3, offs, axis, sol, tag):
+    """The refined solve of anthracene_axis_leg again, each yt_gs_pass
+    sweep between CUDA events and its counters read after it (a sync a
+    sweep, so only the sweeps' own times count): the cost of each solve's
+    cold first pair against its later sweeps. Returns the sweeps' rows."""
+    import torch
+
+    from critic2_tpu_torch.analysis import yt
+    from critic2_tpu_torch.ops import yt_pass as ops
+
+    rows = []
+    gs_pass = yt.yt_gs_pass
+
+    def timed(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = gs_pass(*a, **kw)
+        ev[1].record()
+        ev[1].synchronize()
+        rows.append(dict(ms=ev[0].elapsed_time(ev[1]),
+                         rhs="residual" if ops.launches["yt_pass"] else "f",
+                         grid_barriers=ops.gs_counts()["grid_barriers"]))
+        return got
+
+    ops.reset_launches()
+    yt.yt_gs_pass = timed
+    try:
+        again = yt._solve_sweep(res._chiP, chi32, chi64, f3, offs, axis=axis)
+    finally:
+        yt.yt_gs_pass = gs_pass
+    check(torch.equal(again, sol), f"{tag}: the timed sweeps' solve differs "
+          f"from the untimed one")
+    for j, r in enumerate(rows):
+        log(f"{tag} axis {axis} solve sweep {j + 1:2d} ({r['rhs']}): "
+            f"{r['ms']:.4f} ms, grid barriers {r['grid_barriers']}")
+    for rhs in ("f", "residual"):
+        ms = [r["ms"] for r in rows if r["rhs"] == rhs]
+        log(f"{tag} axis {axis} solve on {rhs}: {len(ms)} sweeps "
+            f"{sum(ms):.1f} ms, first pair {ms[0]:.2f} / {ms[1]:.2f} ms, "
+            f"the later sweeps {sum(ms[2:]) / max(len(ms) - 2, 1):.2f} ms "
+            "on average")
+    return rows
 
 
 def nacl_crystal():
@@ -878,9 +927,9 @@ def main_shape_phase(sl):
     ref = yt._solve_sweep(res._chiP, chi32, chi64, f3, offs)
     t_ref = cuda_ms(lambda: yt._solve_sweep(res._chiP, chi32, chi64, f3,
                                             offs), 1, warm=0)
-    d64, _ = yt._f32_fixpoint(chi64, f3, offs, True, 0, stepped=True)
-    t_d64 = cuda_ms(lambda: yt._f32_fixpoint(chi64, f3, offs, True, 0,
-                                             stepped=True), 1, warm=0)
+    d64, _ = yt._f32_fixpoint(chi64, f3, offs, True, 0)
+    t_d64 = cuda_ms(lambda: yt._f32_fixpoint(chi64, f3, offs, True, 0), 1,
+                    warm=0)
     i1, i2, i3 = res._index(res.iattr)
     dq = float((d64[1, i1, i2, i3] - ref[1, i1, i2, i3]).abs().max()) \
         * sl["dv"]
@@ -1304,9 +1353,9 @@ def multipoles_phase(sl):
         check(v > 0, f"the multipoles path launched no {k} kernel")
     check(pc == ops.GS_MAXP and nchunk == 2, f"multipoles: yt_gs_pass took "
           f"{pc} integrands a launch, not 8 + 1")
-    # a sweep is one launch per chunk. A solve is 8 sweeps on f, one
-    # yt_pass residual and 8 sweeps on it; where a flag is up after that
-    # it runs again flag-stepped: 8 + 4i and 8 + 4j sweeps, 2 residuals
+    # a sweep is one launch per chunk. A solve is 8 + 4i sweeps on f,
+    # one yt_pass residual and 8 + 4j sweeps on it: 4 pairs each, then 2
+    # a flag read until a pair changes nothing
     check(len(per_solve) == r.nattr_raw
           and sum(p["yt_gs_pass"] for p in per_solve)
           == launches["yt_gs_pass"], f"multipoles: {len(per_solve)} solves "
@@ -1317,11 +1366,9 @@ def multipoles_phase(sl):
               f"{nchunk} chunks")
         n = p["yt_gs_pass"] // nchunk
         sweeps.append(n)
-        check((n == 16 and p["yt_pass"] == 1)
-              or (n >= 32 and n % 4 == 0 and p["yt_pass"] == 2),
+        check(n >= 16 and n % 4 == 0 and p["yt_pass"] == 1,
               f"multipoles: a solve of {n} sweeps and {p['yt_pass']} "
-              "residuals is neither the 4 + 4 pair schedule nor that and "
-              "its flag-stepped repeat")
+              "residuals is not 4 + 2i pairs, a residual, 4 + 2j pairs")
     log(f"multipoles lmax=2 on the {N_SLICE}^3 YT result: wall {t:.3f} s, "
         f"{r.nattr_raw} attractors, 9 integrands a solve in chunks of "
         f"{pc} + {9 - pc}, launches {launches}, sweeps of each solve "
@@ -1394,7 +1441,7 @@ def multipoles_phase(sl):
         "absolute below)")
     out["dq_l_vs_jacobi"] = dql
 
-    # why a solve repeats: sweep pairs until a pair changes no bit (that
+    # why a solve goes on: sweep pairs until a pair changes no bit (that
     # clean pair counted), each integrand alone: signed, as its absolute
     # value, and the residual its correction solve starts from
     s4, _ = yt._gs_pairs(chi32, f32, f32, offs, True, npair=4)
@@ -1412,8 +1459,8 @@ def multipoles_phase(sl):
             npairs[tag].append(len(flags))
     log(f"yt_gs_pass float32 sweep pairs to a clean pair, the 9 integrands "
         f"one at a time: signed {npairs['signed']}, absolute values "
-        f"{npairs['abs']}, residuals {npairs['residual']} (a solve repeats "
-        "flag-stepped when any needs more than 4)")
+        f"{npairs['abs']}, residuals {npairs['residual']} (a solve goes "
+        "on 2 pairs a flag read where one needs more than 4)")
     out["pairs_to_settle"] = npairs
     return out
 

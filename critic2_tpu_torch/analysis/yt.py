@@ -19,8 +19,9 @@ Two directions of the same recurrence cover all consumers:
 The solve (`_solve_sweep`) takes one of two routes:
   * tensors on CUDA: f32 Gauss-Seidel sweeps through the yt_gs_pass kernel
     plus one f64 refinement whose residual f + R s goes through the
-    yt_pass kernel; the sweeps run along the grid axis that `_sweep_axis`
-    picks from the neighbour offsets;
+    yt_pass kernel; each f32 solve runs 4 sweep pairs, then 2 at a time
+    until a pair changes nothing, one flag read a batch, along the grid
+    axis that `_sweep_axis` picks from the neighbour offsets;
   * tensors on the CPU: the f64 Jacobi fixpoint by torch.rolls
     (`_xla_sweep`, named after its JAX counterpart).
 
@@ -186,37 +187,34 @@ def _gs_pairs(chiP32, s, f3, offs, adjoint, npair, axis=0):
     return s, flag
 
 
-def _f32_fixpoint(chiP32, rhs32, offs, adjoint, axis, stepped):
-    """Gauss-Seidel sweep pairs along `axis` from s = rhs32 towards the
+def _f32_fixpoint(chiP32, rhs32, offs, adjoint, axis):
+    """Gauss-Seidel sweep pairs along `axis` from s = rhs32 to the
     fixpoint of s = rhs32 + R s: 4 pairs (they resolve typical
-    atomic-basin fields), then, if `stepped`, 2 at a time until a pair
-    changes nothing, one flag read a batch. Returns (s, the last pair's
-    changed-anything flag as a device tensor)."""
+    atomic-basin fields), then 2 at a time until a pair changes nothing,
+    one flag read a batch. Returns (s, the pairs run)."""
     s, flag = _gs_pairs(chiP32, rhs32, rhs32, offs, adjoint, npair=4,
                         axis=axis)
     npairs = 4
-    while stepped:
+    while True:
         trace.count("host_syncs")
         if int(flag) == 0 or npairs >= sum(rhs32.shape[1:]) + 16:
-            break
+            return s, npairs
         s, flag = _gs_pairs(chiP32, s, rhs32, offs, adjoint, npair=2,
                             axis=axis)
         npairs += 2
-    return s, flag
 
 
-def _refined(chiP32, chiR, f3, offs, adjoint, axis, stepped):
+def _refined(chiP32, chiR, f3, offs, adjoint, axis):
     """s = f3 + R s at f64 accuracy by one step of iterative refinement:
     an f32 solve s1, the f64 residual r = f3 + R s1 - s1 by yt_pass with
     chiR, an f32 correction e from r, each solve by `_f32_fixpoint`.
-    Returns (s1 + e, (the two solves' flags, device tensors))."""
+    Returns (s1 + e, (the pairs each solve ran))."""
     f32 = f3.to(torch.float32)
-    s1, flag1 = _f32_fixpoint(chiP32, f32, offs, adjoint, axis, stepped)
+    s1, n1 = _f32_fixpoint(chiP32, f32, offs, adjoint, axis)
     s1 = s1.to(f3.dtype)
     r = yt_pass(chiR, s1, f3, offs=offs, adjoint=adjoint) - s1
-    e, flag2 = _f32_fixpoint(chiP32, r.to(torch.float32), offs, adjoint,
-                             axis, stepped)
-    return s1 + e.to(f3.dtype), (flag1, flag2)
+    e, n2 = _f32_fixpoint(chiP32, r.to(torch.float32), offs, adjoint, axis)
+    return s1 + e.to(f3.dtype), (n1, n2)
 
 
 def _solve_sweep(chiP, chiP32, chiR, f3, offs, adjoint=True, axis=0):
@@ -225,25 +223,18 @@ def _solve_sweep(chiP, chiP32, chiR, f3, offs, adjoint=True, axis=0):
     chiP32 None: the f64 Jacobi fixpoint (_xla_sweep). Otherwise the kernel
     route, `_refined` along grid axis `axis` (chiP32: f32 flux, chiR: f64
     flux, both shifted for the adjoint); a kernel-route solve along an
-    axis other than 0 counts one `yt.off_axis_solves`.
-    The optimistic schedule (4 + 4 pairs) reads both convergence flags in
-    ONE sync; when a flag trips, the flag-stepped schedule solves again
-    from f (one `yt.fallbacks` count a trip)."""
+    axis other than 0 counts one `yt.off_axis_solves`, and one whose s1
+    or e needed more than the first 4 pairs counts one `yt.fallbacks`."""
     trace.count("yt.solves")
     with trace.span("yt.solve"):
         if chiP32 is None:
             return _xla_sweep(chiP, f3, offs, adjoint=adjoint)
         if axis:
             trace.count("yt.off_axis_solves")
-        out, (flag1, flag2) = _refined(chiP32, chiR, f3, offs, adjoint,
-                                       axis, stepped=False)
-        trace.count("host_syncs")
-        if int((flag1 != 0) | (flag2 != 0)) == 0:   # one host sync
-            return out
-        trace.count("yt.fallbacks")
-        with trace.span("yt.fallback"):
-            return _refined(chiP32, chiR, f3, offs, adjoint, axis,
-                            stepped=True)[0]
+        out, npairs = _refined(chiP32, chiR, f3, offs, adjoint, axis)
+        if max(npairs) > 4:
+            trace.count("yt.fallbacks")
+        return out
 
 
 @dataclass

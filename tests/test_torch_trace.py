@@ -217,10 +217,10 @@ def test_kernel_route_counts_the_trip_of_the_optimistic_schedule(
         monkeypatch):
     """_solve_sweep's kernel route, run with the plain kernels as in
     tests/test_torch_yt.py::test_kernel_route_matches_jax_xla_sweep, on a
-    field that needs more than 4 pairs: one solve, one trip, the
-    flag-stepped loop under its own span inside the solve's, one host
-    sync a flag read (the plain kernels' own compares stand for work that
-    the CUDA kernels do on the device), and the yt_gs_pass launches of the
+    field that needs more than 4 pairs: one solve, one trip of the first
+    4 pairs into the flag-stepped ones, one span, one host sync a flag
+    read (the plain kernels' own compares stand for work that the CUDA
+    kernels do on the device), and the yt_gs_pass launches of the
     schedule."""
     c, rho = _zigzag()
     rt = tyt.yt_integrate(c, torch.as_tensor(rho))
@@ -243,14 +243,13 @@ def test_kernel_route_counts_the_trip_of_the_optimistic_schedule(
     assert out["counters"] == {"yt.solves": 1, "yt.fallbacks": 1,
                                "host_syncs": len(flag_reads)}
     assert len(flag_reads) > 3
-    # the schedule: 16 optimistic sweeps, then the stepped solves from f
-    assert len(sweeps) == 48
-    assert [(sp[0], sp[3]) for sp in out["spans"]] == [
-        ("yt.solve", -1), ("yt.fallback", 0)]
+    # the schedule: s1 and e each 4 pairs, then 2 a flag read, from f once
+    assert len(sweeps) == 32
+    assert [(sp[0], sp[3]) for sp in out["spans"]] == [("yt.solve", -1)]
     ref = tyt._xla_sweep(chi, f3, offs, adjoint=True)
     np.testing.assert_allclose(s.numpy(), ref.numpy(), rtol=1e-10,
                                atol=1e-10 * float(ref.abs().max()))
-    # on the two Gaussians 4 + 4 pairs suffice: no trip, one flag read
+    # on the two Gaussians 4 + 4 pairs suffice: no trip, a flag read each
     sy = _system()
     rt2 = tyt.yt_integrate(sy.crystal, sy.ref.grid.f)
     chi, offs = rt2._chiP, rt2._offs
@@ -260,5 +259,61 @@ def test_kernel_route_counts_the_trip_of_the_optimistic_schedule(
         tyt._solve_sweep(chi, tyt._shifted(chi, offs, torch.float32),
                          tyt._shifted(chi, offs, torch.float64), f3, offs,
                          adjoint=True)
-    assert rec.read()["counters"] == {"yt.solves": 1, "host_syncs": 1}
+    assert rec.read()["counters"] == {"yt.solves": 1, "host_syncs": 2}
     assert len(sweeps) == 16
+
+
+def _optimistic_then_stepped(chi32, chiR, f3, offs, adjoint):
+    """The earlier schedule of the kernel route, spelled out: the refined
+    solve with 4 + 4 pairs; if either last pair changed anything, the
+    refined solve again from f with 4 pairs, then 2 a flag read until a
+    pair changes nothing. Returns (s, whether it tripped)."""
+    def fixpoint(rhs, stepped):
+        s, flag = tyt._gs_pairs(chi32, rhs, rhs, offs, adjoint, npair=4)
+        npairs = 4
+        while (stepped and int(flag) != 0
+               and npairs < sum(rhs.shape[1:]) + 16):
+            s, flag = tyt._gs_pairs(chi32, s, rhs, offs, adjoint, npair=2)
+            npairs += 2
+        return s, flag
+
+    def refined(stepped):
+        s1, flag1 = fixpoint(f3.to(torch.float32), stepped)
+        s1 = s1.to(f3.dtype)
+        r = tyt.yt_pass(chiR, s1, f3, offs=offs, adjoint=adjoint) - s1
+        e, flag2 = fixpoint(r.to(torch.float32), stepped)
+        return s1 + e.to(f3.dtype), int(flag1) != 0 or int(flag2) != 0
+
+    out, tripped = refined(False)
+    return (refined(True)[0] if tripped else out), tripped
+
+
+@pytest.mark.parametrize("adjoint", [True, False],
+                         ids=["adjoint", "forward"])
+@pytest.mark.parametrize("field", ["zigzag", "two_gaussians"])
+def test_stepped_schedule_is_the_optimistic_one_bit_for_bit(field, adjoint):
+    """The f32 fixpoint is unique bit for bit and the stepped schedule's
+    first 4 pairs are the optimistic schedule's, so running it from the
+    first pair gives the earlier schedule's answer exactly, with or
+    without a trip; each trip still counts one yt.fallbacks."""
+    if field == "zigzag":
+        c, rho = _zigzag()
+        rho = torch.as_tensor(rho)
+    else:
+        sy = _system()
+        c, rho = sy.crystal, sy.ref.grid.f
+    rt = tyt.yt_integrate(c, rho)
+    chi, offs = rt._chiP, rt._offs
+    if adjoint:
+        chi32 = tyt._shifted(chi, offs, torch.float32)
+        chiR = tyt._shifted(chi, offs, torch.float64)
+    else:
+        chi32, chiR = chi.to(torch.float32), chi
+    f3 = torch.stack([torch.ones_like(rho), rho])
+    want, tripped = _optimistic_then_stepped(chi32, chiR, f3, offs, adjoint)
+    with trace.recording() as rec:
+        got = tyt._solve_sweep(chi, chi32, chiR, f3, offs, adjoint=adjoint)
+    assert torch.equal(got, want)
+    # the zig-zag needs 8 pairs each way, the Gaussians 4
+    assert tripped == (field == "zigzag")
+    assert rec.read()["counters"].get("yt.fallbacks", 0) == tripped
