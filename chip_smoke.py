@@ -238,6 +238,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      nuclei with their signatures, 1e-6 bohr); each leg's card wall
      beside the reference's host wall, the host CPU and its OpenMP
      threads;
+ 15. the near-grid walk kernel bader_walk at the benchmark's hematite
+     cell (runs after phase 5; benchmark/configs/hematite-r3c.json, its
+     density of seed HEMATITE_SEED, 162 x 162 x 432, f64):
+     intgrid(method="bader") once warm and once with the launch counts
+     reset just before, exactly one bader_walk launch and no walker
+     stopped at the cap, 30 attractors on the 12 Fe and 18 O, the sums of
+     the charges (204 e) and of the volumes (the cell's) to 1e-9
+     relative; the kernel's roots bitwise neargrid_walk_plain's on the
+     same tensor; the kernel's time (CUDA events) beside the plain walk's
+     and the bytes bound N (8 + 8) B at the HBM rate;
 then one JSON line of kernel records and, last, the device JSON line.
 """
 from __future__ import annotations
@@ -257,10 +267,14 @@ N_KERNEL = 48                  # grid of the kernel-against-plain phase
 # output plane but index 0 lies on a node plane of the 256 grid (254 would
 # share the plane at 1/2)
 NSTEP_ODD = (255, 253, 251)
+HEMATITE_SEED = 2500000107     # the benchmark density of the walk leg
 REPLACES = {"yt_pass": "critic2_tpu/ops/yt_pass.py:126",
-            "yt_gs_pass": "critic2_tpu/ops/yt_pass.py:292"}
+            "yt_gs_pass": "critic2_tpu/ops/yt_pass.py:292",
+            # no TPU kernel: the JAX package's batched XLA steps
+            "bader_walk": "critic2_tpu/analysis/bader.py::_neargrid_roots"}
 SOURCE = {"yt_pass": "critic2_tpu_torch/csrc/yt_pass.cu",
-          "yt_gs_pass": "critic2_tpu_torch/csrc/yt_gs_pass.cu"}
+          "yt_gs_pass": "critic2_tpu_torch/csrc/yt_gs_pass.cu",
+          "bader_walk": "critic2_tpu_torch/csrc/bader_walk.cu"}
 
 
 def log(*a):
@@ -1780,6 +1794,83 @@ def bader_phase(s, yt_rows):
     log("bader at 64^3: labels and attractors on the card equal the CPU's, "
         "neargrid and ongrid")
     return out
+
+
+def bader_walk_phase(dev):
+    """Phase 15: the walk kernel on the benchmark's hematite density, in
+    intgrid and against its plain version; returns its kernel record."""
+    import numpy as np
+    import torch
+
+    from benchmark.lib import density as bench_density
+    from critic2_tpu_torch.analysis import bader
+    from critic2_tpu_torch.analysis.integration import intgrid
+    from critic2_tpu_torch.convert import crystal_from_arrays
+    from critic2_tpu_torch.fields.field import Field
+    from critic2_tpu_torch.fields.grid3 import Grid3
+    from critic2_tpu_torch.ops import bader_walk
+    from critic2_tpu_torch.system import System
+    from critic2_tpu_torch.utils import trace
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "benchmark", "configs",
+                           "hematite-r3c.json")) as fh:
+        cfg = json.load(fh)
+    st = cfg["structure"]
+    rho = bench_density.make_pool(cfg, HEMATITE_SEED, 1, dev)[0]
+    shape = tuple(rho.shape)
+    N = rho.numel()
+    c = crystal_from_arrays(np.asarray(st["lattice_bohr"]), st["x_frac"],
+                            st["species_of"],
+                            [(sp["name"], sp["z"]) for sp in st["species"]])
+    s = System.from_structure(c, device=dev)
+    s.load_field(Field.from_grid(c, Grid3(rho)))
+    intgrid(s, method="bader")                 # warm: the library loads
+    bader_walk.launches["bader_walk"] = 0
+    with trace.recording() as rec:
+        r, t = wall_s(lambda: intgrid(s, method="bader"))
+    counters = rec.read()["counters"]
+    launches = bader_walk.launches["bader_walk"]
+    check(launches == 1, f"bader_walk: {launches} launches in one intgrid")
+    check(counters["bader.capped"] == 0,
+          f"bader_walk: {counters['bader.capped']} walkers at the cap")
+    names = sorted(row.name for row in r.rows)
+    check(r.nattr_raw == 30 and names == ["Fe"] * 12 + ["O"] * 18,
+          f"hematite: {r.nattr_raw} attractors, rows {names}")
+    q = sum(row.pop for row in r.rows)
+    v = sum(row.volume for row in r.rows)
+    check(abs(q - 204.0) <= 1e-9 * 204.0, f"hematite: sum of charges {q!r}")
+    check(abs(v - c.volume) <= 1e-9 * c.volume,
+          f"hematite: sum of volumes {v!r}, cell {c.volume!r}")
+    log(f"intgrid bader neargrid hematite {shape}: wall {t:.4f} s, 1 "
+        f"bader_walk launch, {counters['bader.walker_steps']} walker-steps, "
+        f"0 capped, 30 rows (12 Fe, 18 O), sum q = {q:.12f} e, sum V - "
+        f"cell = {v - c.volume:.3e} bohr^3")
+    del r
+    lat2car, offs, dists = bader._lattice_metric(c, shape)
+    car2lat = np.linalg.inv(lat2car)
+    G = (car2lat @ car2lat.T).tolist()
+    invd = 1.0 / dists
+    maxiter = 4 * max(shape) + 64
+    got = bader._neargrid_roots(c, rho)
+    want = []
+    plain_ms = cuda_ms(lambda: want.append(bader_walk.neargrid_walk_plain(
+        rho, G, offs, invd, maxiter)), 1, warm=0)
+    same = torch.equal(got, want[0])
+    check(same, "bader_walk: roots differ from neargrid_walk_plain's")
+    del got, want
+    ms = cuda_ms(lambda: bader_walk.bader_walk(rho, G, invd, maxiter), 5)
+    bound_ms = N * (rho.element_size() + 8) / HBM_BYTES_PER_S * 1e3
+    log(f"bader_walk f64 N={N}: roots bitwise equal to the plain walk's; "
+        f"kernel {ms:.4f} ms ({100 * bound_ms / ms:.2f} % of the "
+        f"{bound_ms:.4f} ms bytes bound), plain {plain_ms:.1f} ms")
+    return {"name": "bader_walk", "route": "cuda",
+            "source": SOURCE["bader_walk"],
+            "replaces": REPLACES["bader_walk"], "launches": launches,
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "intgrid_s": t, "walker_steps": counters["bader.walker_steps"],
+            "shape": list(shape), "dtype": "float64"}
 
 
 def bisect_flux_phase(s):
@@ -4433,6 +4524,10 @@ def main() -> int:
 
     sl = slice_phase(dev, N_SLICE)
     meas = main_shape_phase(sl)
+    t0 = time.perf_counter()
+    walk = bader_walk_phase(dev)
+    torch.cuda.empty_cache()
+    log(f"bader walk phase: {time.perf_counter() - t0:.1f} s")
     if args.profile:
         profile_phase(sl)
     t0 = time.perf_counter()
@@ -4488,6 +4583,7 @@ def main() -> int:
             "launches_deloc": fm["launches"][name],
             "launches_sharded": pc["yt"]["launches"][name],
             **m.get("extra", {})})
+    kernels.append(walk)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

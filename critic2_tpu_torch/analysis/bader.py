@@ -13,10 +13,14 @@ log2(longest path) dense gather passes resolve every trajectory at once.
 Two methods: `ongrid` approximates the reference's refine_edge
 (src/bader@proc.f90:236-358) with iterative edge reassignment;
 `neargrid` (the reference default) runs the exact correction-vector
-walks, batched over the grid points. The walks run in blocks of
-`walk_block` points, and walkers that have arrived leave the working set
-after every segment of steps: each walk is independent of all others, so
-the assignment does not depend on the blocking.
+walks, every point's on its own (ops/bader_walk.py: a CUDA kernel on the
+card, batched steps elsewhere), so the assignment does not depend on
+how the walks are grouped.
+
+The program's record (utils/trace.py) gets the spans `bader.walk` (the
+walks; the ongrid successors and pointer doubling), `bader.basins`
+(unique roots, attractors to the host) and `bader.sums` (basin sums to
+the host), the walk's counters (ops/bader_walk.py) and `host_syncs`.
 """
 from __future__ import annotations
 
@@ -25,11 +29,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.bader_walk import neargrid_walk
+from ..utils import trace
 from .yt import _as_grid
 
 __all__ = ["bader_integrate", "BaderResult"]
-
-WALK_SEGMENT = 16          # near-grid steps between two reads of `done`
 
 
 def _neighbor_offsets26():
@@ -72,14 +76,16 @@ class BaderResult:
         """Basin sums of one integrand (N,) or a stack (nprops, N). The
         sums are index_add_ reductions: on CUDA the order of the additions
         is not fixed, so two runs agree to rounding, not bitwise."""
-        lab = self.labels_d.reshape(-1)
-        f = torch.as_tensor(field_flat, device=lab.device)
-        single = f.numel() == lab.numel()
-        f2 = f.reshape(1 if single else f.shape[0], -1)
-        out = torch.zeros((f2.shape[0], self.nattr), dtype=f2.dtype,
-                          device=lab.device)
-        out.index_add_(1, lab, f2)
-        q = out.cpu().numpy()
+        with trace.span("bader.sums"):
+            lab = self.labels_d.reshape(-1)
+            f = torch.as_tensor(field_flat, device=lab.device)
+            single = f.numel() == lab.numel()
+            f2 = f.reshape(1 if single else f.shape[0], -1)
+            out = torch.zeros((f2.shape[0], self.nattr), dtype=f2.dtype,
+                              device=lab.device)
+            out.index_add_(1, lab, f2)
+            trace.count("host_syncs")
+            q = out.cpu().numpy()
         return q[0] if single else q
 
     def basin_support(self, a: int, tol: float = 1e-15):
@@ -87,72 +93,6 @@ class BaderResult:
         idx = torch.nonzero(self.labels_d.reshape(-1) == a)[:, 0]
         idx = idx.cpu().numpy()
         return idx, np.ones(idx.size)
-
-
-def _val_pbc(f_flat, shape, p):
-    """f at integer points p (..., 3) with pbc."""
-    n1, n2, n3 = shape
-    return f_flat[torch.remainder(p[..., 0], n1) * (n2 * n3)
-                  + torch.remainder(p[..., 1], n2) * n3
-                  + torch.remainder(p[..., 2], n3)]
-
-
-def _ongrid_step(f_flat, shape, offs, invd, p):
-    nbr = p[:, None, :] + offs[None, :, :]             # (B, 26, 3)
-    meas = (_val_pbc(f_flat, shape, nbr)
-            - _val_pbc(f_flat, shape, p)[:, None]) * invd[None, :]
-    best, k = meas.max(dim=1)
-    pm = torch.gather(nbr, 1, k[:, None, None].expand(-1, 1, 3))[:, 0]
-    return torch.where((best > 0.0)[:, None], pm, p)
-
-
-def _neargrid_step(state, f_flat, G, offs, invd, shape):
-    p, dr, prev, done = state
-    e = torch.eye(3, dtype=torch.int64, device=p.device)
-    nshape = torch.tensor(shape, dtype=torch.int64, device=p.device)
-    f0 = _val_pbc(f_flat, shape, p)
-    fp = torch.stack([_val_pbc(f_flat, shape, p + e[d])
-                      for d in range(3)], -1)
-    fm = torch.stack([_val_pbc(f_flat, shape, p - e[d])
-                      for d in range(3)], -1)
-    glat = 0.5 * (fp - fm)
-    glat = torch.where((fp < f0[:, None]) & (fm < f0[:, None]),
-                       torch.zeros_like(glat), glat)
-    # gdir = glat @ G.T as three products summed in a fixed order, so the
-    # rint below sees the same rounding on every device
-    gdir = torch.stack([glat[:, 0] * G[i][0] + glat[:, 1] * G[i][1]
-                        + glat[:, 2] * G[i][2] for i in range(3)], -1)
-    gmax = gdir.abs().max(dim=1).values
-    flat = gmax < 1e-30
-
-    nbr_any = (_val_pbc(f_flat, shape, p[:, None, :] + offs[None, :, :])
-               > f0[:, None]).any(-1)
-    ismax26 = ~nbr_any          # reference is_max (26 neighbors)
-
-    g = gdir / torch.clamp(gmax, min=1e-300)[:, None]
-    rg = torch.round(g)
-    pm_g = p + rg.to(torch.int64)
-    dr_g = dr + g - rg
-    rdr = torch.round(dr_g)
-    pm_g = pm_g + rdr.to(torch.int64)
-    dr_g = dr_g - rdr
-
-    pm_o = _ongrid_step(f_flat, shape, offs, invd, p)
-
-    use_o = flat & ~ismax26
-    pm = torch.where(use_o[:, None], pm_o, pm_g)
-    zero = torch.zeros_like(dr_g)
-    drn = torch.where((flat | use_o)[:, None], zero, dr_g)
-    # cycle guard: revisiting the previous point -> ongrid + reset
-    cyc = (torch.remainder(pm, nshape)
-           == torch.remainder(prev, nshape)).all(-1) & ~done
-    pm = torch.where(cyc[:, None], pm_o, pm)
-    drn = torch.where(cyc[:, None], zero, drn)
-
-    newdone = done | (flat & ismax26) | (pm == p).all(-1)
-    pm = torch.where(newdone[:, None], p, pm)
-    drn = torch.where(newdone[:, None], zero, drn)
-    return pm, drn, p, newdone
 
 
 def _lattice_metric(crystal, shape):
@@ -172,55 +112,37 @@ def _neargrid_roots(crystal, rho, maxiter: int | None = None,
 
     The reference walks trajectories sequentially and shortcuts into
     already-assigned points (then patches the damage with refine_edge,
-    :236-358). Here every point's walk is independent and batched, which
-    removes the scan-order dependence, so no edge refinement is needed;
-    the result is the assignment every trajectory would give in
-    isolation. A two-step cycle guard falls back to the on-grid step with
-    dr reset, mirroring the reference's known-point fallback (:422-427).
+    :236-358). Here every point's walk is independent (the CUDA kernel of
+    ops/bader_walk.py on the card, batched steps in blocks of
+    `walk_block` walkers elsewhere), which removes the scan-order
+    dependence, so no edge refinement is needed; the result is the
+    assignment every trajectory would give in isolation. A near-grid step
+    onto a point of the walker's last ops.bader_walk.WALK_MEMORY (8)
+    steps falls back to the on-grid step with dr reset, the reference's
+    known-point fallback (:422-427) over the last points of the walk
+    rather than all of it: a cycle of more points would stop where it
+    stands after maxiter steps, rounded up to whole segments of
+    ops.bader_walk.WALK_SEGMENT (counted as `bader.capped`).
 
+    Records the span `bader.walk`, which ends when the walk has ended.
     Returns the flat attractor index of every grid point, (N,) int64 on
     the device of rho."""
     shape = tuple(int(s) for s in rho.shape)
-    n1, n2, n3 = shape
-    N = n1 * n2 * n3
-    dev = rho.device
-    f_flat = rho.reshape(-1)
     lat2car, offs_np, dists = _lattice_metric(crystal, shape)
     car2lat = np.linalg.inv(lat2car)
     # direct-coordinate gradient operator: res = C (C^T g_lat) with
     # C = car2lat (reference rho_grad_dir :468-503)
     G = (car2lat @ car2lat.T).tolist()
-    offs = torch.as_tensor(offs_np, device=dev)
-    invd = torch.as_tensor(1.0 / dists, dtype=rho.dtype, device=dev)
     if maxiter is None:
         maxiter = 4 * max(shape) + 64
-
-    def flat_of(p):
-        return (torch.remainder(p[:, 0], n1) * (n2 * n3)
-                + torch.remainder(p[:, 1], n2) * n3
-                + torch.remainder(p[:, 2], n3))
-
-    roots = torch.empty(N, dtype=torch.int64, device=dev)
-    for lo in range(0, N, walk_block):
-        order = torch.arange(lo, min(N, lo + walk_block), device=dev)
-        p = torch.stack([order // (n2 * n3), (order // n3) % n2,
-                         order % n3], -1)
-        state = (p, torch.zeros(p.shape, dtype=rho.dtype, device=dev),
-                 p - 1, torch.zeros(len(order), dtype=torch.bool,
-                                    device=dev))
-        it = 0
-        while it < maxiter and len(order):
-            for _ in range(WALK_SEGMENT):
-                state = _neargrid_step(state, f_flat, G, offs, invd, shape)
-            it += WALK_SEGMENT
-            done = state[3]
-            if bool(done.any()):          # arrived walkers leave the set
-                roots[order[done]] = flat_of(state[0][done])
-                live = ~done
-                order = order[live]
-                state = tuple(v[live] for v in state)
-        if len(order):
-            roots[order] = flat_of(state[0])
+    with trace.span("bader.walk"):
+        roots = neargrid_walk(rho, G, offs_np, 1.0 / dists, maxiter,
+                              walk_block)
+        if roots.is_cuda:
+            # the walk's end, so that the span holds the kernel's time (the
+            # sort of the roots that follows waits for it all the same)
+            trace.count("host_syncs")
+            torch.cuda.current_stream(roots.device).synchronize()
     return roots
 
 
@@ -281,13 +203,14 @@ def bader_integrate(crystal, rho, block: int = 1 << 18,
 
     rho_flat = rho.reshape(-1)
     root = torch.empty(N, dtype=torch.int64, device=dev)
-    for lo in range(0, N, block):
-        idx = torch.arange(lo, min(N, lo + block), device=dev)
-        root[idx] = _succ_block(idx, rho_flat, offs, invd, shape)
+    with trace.span("bader.walk"):
+        for lo in range(0, N, block):
+            idx = torch.arange(lo, min(N, lo + block), device=dev)
+            root[idx] = _succ_block(idx, rho_flat, offs, invd, shape)
 
-    # pointer doubling to the attractor roots
-    for _ in range(int(np.ceil(np.log2(max(N, 2)))) + 1):
-        root = root[root]
+        # pointer doubling to the attractor roots
+        for _ in range(int(np.ceil(np.log2(max(N, 2)))) + 1):
+            root = root[root]
 
     res = _bader_from_roots(crystal, rho, root)
     # edge refinement: recompute succ labels from the *current* labeling;
@@ -295,6 +218,7 @@ def bader_integrate(crystal, rho, block: int = 1 << 18,
     labels = res.labels_d.reshape(-1)
     for _ in range(refine_iters):
         new = _refine_pass(labels, rho_flat, offs, invd, shape, block)
+        trace.count("host_syncs")
         if torch.equal(new, labels):
             break
         labels = new
@@ -305,12 +229,15 @@ def bader_integrate(crystal, rho, block: int = 1 << 18,
 def _bader_from_roots(crystal, rho, root_flat):
     """Build a BaderResult from per-point attractor flat indices (device
     tensor): torch.unique sorts, so basin b is the b-th lowest flat
-    attractor index."""
+    attractor index. Records the span `bader.basins`."""
     shape = tuple(int(s) for s in rho.shape)
-    roots, labels = torch.unique(root_flat, return_inverse=True)
-    i_at = roots.cpu().numpy()
-    x1, x2, x3 = np.unravel_index(i_at, shape)
-    xattr = np.stack([x1 / shape[0], x2 / shape[1], x3 / shape[2]], axis=1)
-    return BaderResult(crystal=crystal, shape=shape, nattr=len(i_at),
-                       xattr=xattr, iattr=i_at,
-                       labels_d=labels.reshape(shape))
+    with trace.span("bader.basins"):
+        roots, labels = torch.unique(root_flat, return_inverse=True)
+        trace.count("host_syncs", 2)          # unique's size, the readback
+        i_at = roots.cpu().numpy()
+        x1, x2, x3 = np.unravel_index(i_at, shape)
+        xattr = np.stack([x1 / shape[0], x2 / shape[1], x3 / shape[2]],
+                         axis=1)
+        return BaderResult(crystal=crystal, shape=shape, nattr=len(i_at),
+                           xattr=xattr, iattr=i_at,
+                           labels_d=labels.reshape(shape))

@@ -24,7 +24,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel library -> its source (headers in csrc/ are hashed into every one)
-SOURCES = {"yt_pass": "yt_pass.cu", "yt_gs_pass": "yt_gs_pass.cu"}
+SOURCES = {"yt_pass": "yt_pass.cu", "yt_gs_pass": "yt_gs_pass.cu",
+           "bader_walk": "bader_walk.cu"}
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC"]

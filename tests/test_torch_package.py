@@ -518,7 +518,7 @@ def test_kernel_library_name_tracks_sources():
     a = _ext._lib_path("yt_pass")
     b = _ext._lib_path("yt_gs_pass")
     assert a != b and a.startswith(_ext.BUILD_DIR)
-    assert set(_ext.SOURCES) == {"yt_pass", "yt_gs_pass"}
+    assert set(_ext.SOURCES) == {"yt_pass", "yt_gs_pass", "bader_walk"}
     for src in _ext.SOURCES.values():
         assert os.path.exists(os.path.join(_ext.CSRC, src))
     assert "-gencode=arch=compute_90a,code=sm_90a" in _ext.NVCC_FLAGS

@@ -31,6 +31,7 @@ from critic2_tpu_torch.convert import (bader_to_arrays, cplist_to_arrays,
 from critic2_tpu_torch.fields import promol as tpromol
 from critic2_tpu_torch.fields.grid1 import atomic_density_at
 from critic2_tpu_torch.fields.grid3 import Grid3
+from critic2_tpu_torch.ops import bader_walk
 
 # the inputs are tiny: one intra-op thread a process, so that parallel
 # test workers do not fight over the cores
@@ -310,7 +311,7 @@ def test_grid_main_path_matches_jax():
     np.testing.assert_allclose(rt.volumes, rj.volumes, rtol=0, atol=1e-10)
 
 
-def test_spline_graph_and_bader_path_matches_jax():
+def test_spline_graph_and_bader_path_matches_jax(monkeypatch):
     """The spline, graph and Bader path as a whole: structure -> grid in
     trispline mode -> autocp -> makegraph -> intgrid(method="bader") ->
     multipoles, against the same calls of the JAX package on the smooth
@@ -351,6 +352,9 @@ def test_spline_graph_and_bader_path_matches_jax():
     np.testing.assert_allclose(np.sort(ta["brpathlen"], axis=1),
                                np.sort(ja["brpathlen"], axis=1), rtol=1e-5)
 
+    # the JAX package's near-grid cycle guard remembers the previous point
+    # alone: the port's walk with a memory of 1
+    monkeypatch.setattr(bader_walk, "WALK_MEMORY", 1)
     for bader_method in ("neargrid", "ongrid"):
         rj = jint.intgrid(js, method="bader", bader_method=bader_method)
         rt = tint.intgrid(ts, method="bader", bader_method=bader_method)
